@@ -1,0 +1,863 @@
+"""Multi-camera shedding sessions on PyTorch: one query spec, one state of
+per-camera tensor lanes, one fused ingest per camera batch.
+
+``Query``
+    Declarative query spec — target colors, OR/AND composition, E2E
+    latency budget, per-camera target FPS, feature-bin and
+    background-model constants.
+
+``SessionState``
+    The per-camera state as torch tensors with a leading camera lane:
+    ``(C, N)`` background rows and ``(C,)`` illumination gains (the fused
+    ingest kernel's carried state), per-camera utility-CDF ring buffers
+    with their bucket counts and admission thresholds (Eq. 16–17), the
+    control loop's EWMAs (Eq. 18–20) and the utility-ordered queues as
+    fixed-capacity ``(C, K)`` utility/seq lanes. Its 23 leaves map one to
+    one onto the JAX reference's ``SessionState``
+    (``repro_torch.convert.state_from_numpy``).
+
+``ShedSession``
+    ``step`` is the serve loop: a ``(C, T, H, W, 3)`` camera batch goes
+    through the fused CUDA ingest kernel, CDF maintenance, vectorized
+    admission, queue selection and threshold re-derivation on the
+    session's device without utilities leaving it — only compact
+    ``(C, T)`` decision codes and evicted queue seqs come back.
+    ``ingest``/``admit``/``tick`` are the split phases of the same
+    machinery; ``next_frame``/``next_frames`` are transmission control.
+
+The control plane is one torch implementation that runs on whichever
+device the session has; on the CPU its results are bit-identical to the
+reference's NumPy ``serve="host"`` twin (the tests hold it to that), and
+on the card to this same code on the CPU.
+
+``open_session(query, num_cameras, ...)`` is the entry point.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import shed_queue as sq
+from repro_torch.core.colors import COLORS, Color
+from repro_torch.core.control import LatencyInputs
+from repro_torch.core.shedder import ShedderStats
+from repro_torch.core.threshold import (
+    bucket_index_dev,
+    thresholds_from_counts_dev,
+    thresholds_from_lanes_dev,
+)
+from repro_torch.core.utility import (
+    B_S,
+    B_V,
+    UtilityModel,
+    batch_utilities,
+    train_utility_model,
+)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.hsv_features.ops import (
+    IngestState,
+    ingest_core,
+    ingest_pipeline,
+    query_constants,
+)
+
+# decision codes — (C, T) int8 arrays, vectorized per camera
+ADMIT = 0
+SHED_ADMISSION = 1
+SHED_QUEUE = 2
+
+
+class TickConfig(NamedTuple):
+    """Quantile-tick configuration.
+
+    ``exact=True`` re-derives Eq. 17 thresholds with the full ``(C, W)``
+    sort; ``exact=False`` (the default) uses the O(bins) cumsum over the
+    incrementally maintained ``(C, bins)`` count histograms, whose
+    threshold is within one bucket width above the exact one for
+    in-range utilities. Counts are maintained either way.
+    """
+    exact: bool = False
+    lo: float = 0.0
+    width: float = 1.0 / 256.0
+    inv_width: float = 256.0
+
+
+DEFAULT_TICK_CONFIG = TickConfig()
+
+
+def _as_color(c: Union[str, Color]) -> Color:
+    if isinstance(c, Color):
+        return c
+    return COLORS[str(c).lower()]
+
+
+@dataclass(frozen=True)
+class Query:
+    """Declarative spec of what the camera array is watching for.
+
+    ``colors`` compose with ``op`` (Eq. 15: OR -> max, AND -> min over
+    normalized per-color utilities); ``latency_bound`` is the E2E
+    budget driving dynamic queue sizing (Eq. 20); ``fps`` is the
+    per-camera target ingress rate feeding the target drop rate
+    (Eq. 19). The remaining fields are the feature/background constants
+    of the ingest kernel.
+    """
+    colors: Tuple[Color, ...]
+    op: str = "single"                  # single | or | and
+    latency_bound: float = 1.0          # seconds, E2E
+    fps: float = 10.0                   # per-camera target ingress FPS
+    bs: int = B_S                       # saturation bins
+    bv: int = B_V                       # value bins
+    alpha: float = 0.05                 # background EMA learning rate
+    threshold: float = 18.0             # foreground |diff| threshold
+    use_foreground: bool = True
+
+    def __post_init__(self) -> None:
+        colors = tuple(_as_color(c) for c in (
+            self.colors if isinstance(self.colors, (tuple, list))
+            else (self.colors,)))
+        object.__setattr__(self, "colors", colors)
+        if self.op not in ("single", "or", "and"):
+            raise ValueError(f"unknown composition op {self.op!r}")
+        if self.op == "single" and len(colors) > 1:
+            object.__setattr__(self, "op", "or")
+
+    @classmethod
+    def single(cls, color: Union[str, Color], **kw: Any) -> "Query":
+        return cls(colors=(_as_color(color),), op="single", **kw)
+
+    @classmethod
+    def any_of(cls, *colors: Union[str, Color], **kw: Any) -> "Query":
+        return cls(colors=tuple(_as_color(c) for c in colors), op="or", **kw)
+
+    @classmethod
+    def all_of(cls, *colors: Union[str, Color], **kw: Any) -> "Query":
+        return cls(colors=tuple(_as_color(c) for c in colors), op="and", **kw)
+
+    @property
+    def hue_ranges(self) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+        return tuple(tuple(c.hue_ranges) for c in self.colors)
+
+    @property
+    def num_colors(self) -> int:
+        return len(self.colors)
+
+
+@dataclass
+class SessionState:
+    """Per-camera session state: every leaf is a tensor with a leading
+    camera lane (row c belongs to camera c), all on one device.
+
+      * ``bg (C, N)`` / ``gain (C,)`` — the fused ingest kernel's
+        carried background state; ``bg_valid ()`` says whether the lanes
+        hold real history yet (frame 0 seeds them otherwise).
+      * ``cdf_buf (C, W)`` ring buffers of recent utilities with
+        ``cdf_len`` / ``cdf_pos`` — the sliding-window utility CDF
+        (Eq. 16) per camera; ``cdf_counts (C, B)`` is its bucket-count
+        histogram, maintained incrementally with push/evict deltas.
+      * ``threshold (C,)`` — current admission thresholds (Eq. 17).
+      * ``proc_q (C,)`` (+ ``proc_seen``) — asymmetric-EWMA backend
+        latency estimates; ``fps_obs (C,)`` (+ ``fps_seen``) — observed
+        per-camera ingress rates (Eq. 18–19 inputs).
+      * ``queue_cap (C,)`` — dynamic queue sizes (Eq. 20).
+      * ``q_util`` / ``q_seq (C, K)`` + ``q_next_seq (C,)`` — the
+        utility-ordered queues as array lanes (empty slots ``(-inf, -1)``).
+      * ``active (C,)``, ``rate_floor (C,)`` and the ``s2_*`` lanes are
+        carried so that a reference state maps one to one; this slice
+        keeps every lane active, the floor at 0 and the stage-2 lanes
+        untouched.
+    """
+    bg: torch.Tensor          # (C, N) float32
+    gain: torch.Tensor        # (C,) float32
+    bg_valid: torch.Tensor    # () bool
+    cdf_buf: torch.Tensor     # (C, W) float32
+    cdf_len: torch.Tensor     # (C,) int32
+    cdf_pos: torch.Tensor     # (C,) int32
+    cdf_counts: torch.Tensor  # (C, B) int32
+    threshold: torch.Tensor   # (C,) float32
+    proc_q: torch.Tensor      # (C,) float32
+    proc_seen: torch.Tensor   # (C,) bool
+    fps_obs: torch.Tensor     # (C,) float32
+    fps_seen: torch.Tensor    # (C,) bool
+    queue_cap: torch.Tensor   # (C,) int32
+    q_util: torch.Tensor      # (C, K) float32
+    q_seq: torch.Tensor       # (C, K) int32
+    q_next_seq: torch.Tensor  # (C,) int32
+    active: torch.Tensor      # (C,) bool
+    rate_floor: torch.Tensor  # (C,) float32
+    s2_buf: torch.Tensor      # (C, W2) float32
+    s2_len: torch.Tensor      # (C,) int32
+    s2_pos: torch.Tensor      # (C,) int32
+    s2_threshold: torch.Tensor  # (C,) float32
+    s2_counts: torch.Tensor   # (C, B) int32
+
+    @property
+    def num_cameras(self) -> int:
+        return self.gain.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.gain.device
+
+    def as_dict(self) -> Dict[str, np.ndarray]:
+        return {f.name: getattr(self, f.name).cpu().numpy()
+                for f in dataclasses.fields(self)}
+
+    @classmethod
+    def fresh(cls, num_cameras: int, npix: int = 0, *,
+              cdf_window: int = 4096, fps: float = 10.0,
+              queue_size: int = 8, queue_capacity: int = 64,
+              s2_window: int = 64, quantile_bins: int = 256,
+              device: DeviceLike = None) -> "SessionState":
+        dev = resolve_device(device)
+        C = int(num_cameras)
+        K = max(int(queue_capacity), int(queue_size), 1)
+        B = int(quantile_bins)
+        f32, i32 = torch.float32, torch.int32
+
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+
+        q_util, q_seq, q_next = sq.make_lanes(C, K, device=dev)
+        return cls(
+            bg=full((C, npix), 0.0, f32),
+            gain=full((C,), 1.0, f32),
+            bg_valid=torch.tensor(False, device=dev),
+            cdf_buf=full((C, cdf_window), 0.0, f32),
+            cdf_len=full((C,), 0, i32),
+            cdf_pos=full((C,), 0, i32),
+            cdf_counts=full((C, B), 0, i32),
+            threshold=full((C,), float("-inf"), f32),
+            proc_q=full((C,), 0.0, f32),
+            proc_seen=full((C,), False, torch.bool),
+            fps_obs=full((C,), float(fps), f32),
+            fps_seen=full((C,), False, torch.bool),
+            queue_cap=full((C,), int(queue_size), i32),
+            q_util=q_util, q_seq=q_seq, q_next_seq=q_next,
+            active=full((C,), True, torch.bool),
+            rate_floor=full((C,), 0.0, f32),
+            s2_buf=full((C, int(s2_window)), 0.0, f32),
+            s2_len=full((C,), 0, i32),
+            s2_pos=full((C,), 0, i32),
+            s2_threshold=full((C,), float("-inf"), f32),
+            s2_counts=full((C, B), 0, i32),
+        )
+
+
+@dataclass(frozen=True)
+class IngestResult:
+    """One fused-ingest result over a camera array (host arrays)."""
+    pf: np.ndarray                 # (C, T, nc, bs, bv)
+    hue_fraction: np.ndarray       # (C, T, nc)
+    utility: Optional[np.ndarray]  # (C, T) — None without a trained model
+
+
+@dataclass(frozen=True)
+class StepResult:
+    """Compact host-side outcome of one serve ``step``.
+
+    ``decisions``: (C, T) int8 codes (``ADMIT`` / ``SHED_ADMISSION`` /
+    ``SHED_QUEUE``; retroactive same-batch queue evictions included).
+    ``pushed_seq``: (C, T) int32 queue seq per admitted slot (-1
+    otherwise). ``evicted``: per-camera int arrays of seqs of
+    *previously queued* frames dropped this step (push evictions of
+    residents plus tick resizes). ``target_drop_rate``: (C,) float32
+    Eq. 19 rates when the step re-derived thresholds, else None.
+    """
+    decisions: np.ndarray
+    pushed_seq: np.ndarray
+    evicted: List[np.ndarray]
+    target_drop_rate: Optional[np.ndarray] = None
+
+
+# ---------------------------------------------------------------------------
+# Serve-step cores (torch, on the state's device)
+# ---------------------------------------------------------------------------
+
+def _ring_push(buf, pos, ln, counts, us, lo: float, inv_width: float):
+    """Append a (C, T) utility batch into the per-camera ring buffers.
+    The (C, B) bucket ``counts`` are maintained incrementally (ring-wrap
+    aware: slot s is pre-push live iff s < len, wherever ``pos``
+    wrapped), so they always equal a recount of the live window."""
+    C, W = buf.shape
+    B = counts.shape[1]
+    if us.shape[1] >= W:                       # only the tail can survive
+        us = us[:, -W:]
+    T = us.shape[1]
+    idx = ((pos[:, None] + torch.arange(T, dtype=torch.int32,
+                                        device=buf.device)[None, :]) % W
+           ).to(torch.int64)
+    old = torch.gather(buf, 1, idx)
+    evict = idx < ln[:, None]
+    buf = buf.scatter(1, idx, us)
+    counts = counts.scatter_add(
+        1, bucket_index_dev(us, lo, inv_width, B).to(torch.int64),
+        torch.ones_like(us, dtype=torch.int32))
+    counts = counts.scatter_add(
+        1, bucket_index_dev(old, lo, inv_width, B).to(torch.int64),
+        -evict.to(torch.int32))
+    pos = ((pos + T) % W).to(torch.int32)
+    ln = torch.clamp_max(ln + T, W).to(torch.int32)
+    return buf, pos, ln, counts
+
+
+def _eq19_rates(state: SessionState, min_proc: float, C: int):
+    """Eq. 19 target drop rates, float32, in the reference's
+    single-division form ``1 - 1/(p*C*max(fps, 1e-9))`` (every division
+    is tensor by tensor: torch turns ``scalar / tensor`` into a
+    reciprocal and a product, which rounds differently)."""
+    p = torch.clamp_min(state.proc_q, min_proc)
+    denom = p * C * torch.clamp_min(state.fps_obs, 1e-9)
+    rates = torch.clamp(1.0 - torch.ones_like(denom) / denom, 0.0, 1.0)
+    rates = torch.maximum(rates, state.rate_floor)
+    return p, torch.where(state.active, rates, 0.0).to(torch.float32)
+
+
+def _tick_core(state: SessionState, min_proc: float, budget: float,
+               num_total: Optional[int] = None,
+               tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
+    """Eq. 18–20 re-derivation: target rates from the metric lanes,
+    thresholds via the O(bins) bucket cumsum (or ONE batched (C, W) sort
+    under ``tick_cfg.exact``), queue caps + resize.
+
+    Outside ``exact`` mode the resize leaves the lanes as they are when
+    no lane holds more entries than its new cap (the reference host
+    tick's no-eviction fast path, kept here without a host sync), so the
+    physical lane layout stays bit-identical to that twin.
+    """
+    C = num_total if num_total is not None else state.threshold.shape[0]
+    p, rates = _eq19_rates(state, min_proc, C)
+    if tick_cfg.exact:
+        threshold = thresholds_from_lanes_dev(state.cdf_buf, state.cdf_len,
+                                              rates)
+    else:
+        threshold = thresholds_from_counts_dev(
+            state.cdf_counts, state.cdf_len, rates, tick_cfg.lo,
+            tick_cfg.width)
+    threshold = torch.where(state.active, threshold, float("inf"))
+    cap = torch.clamp_min(
+        (torch.full_like(p, budget) / p + 1e-9).to(torch.int32) - 1, 1)
+    q_util, q_seq, resize_ev = sq.resize_dev(state.q_util, state.q_seq, cap)
+    if not tick_cfg.exact:
+        K = state.q_seq.shape[1]
+        occ = (state.q_seq >= 0).sum(dim=1)
+        keep = ~(occ > torch.clamp(cap, 1, K)).any()
+        q_util = torch.where(keep, state.q_util, q_util)
+        q_seq = torch.where(keep, state.q_seq, q_seq)
+        resize_ev = torch.where(keep, -1, resize_ev).to(torch.int32)
+    state = dataclasses.replace(
+        state, threshold=threshold.to(torch.float32),
+        queue_cap=cap.to(torch.int32), q_util=q_util, q_seq=q_seq)
+    return state, rates, resize_ev
+
+
+def _control_core(state: SessionState, util, *, update_cdf: bool,
+                  do_tick: bool, min_proc: float, budget: float,
+                  num_total: Optional[int] = None,
+                  tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
+    """CDF push -> admission -> queue selection -> (optional) tick.
+    Returns (state', outputs-dict of compact tensors)."""
+    util = util.to(torch.float32)
+    C, T = util.shape
+    cdf_buf, cdf_pos, cdf_len = state.cdf_buf, state.cdf_pos, state.cdf_len
+    cdf_counts = state.cdf_counts
+    if update_cdf:
+        cdf_buf, cdf_pos, cdf_len, cdf_counts = _ring_push(
+            cdf_buf, cdf_pos, cdf_len, cdf_counts, util, tick_cfg.lo,
+            tick_cfg.inv_width)
+    admit = ~(util < state.threshold[:, None])
+    decisions = torch.where(admit, ADMIT, SHED_ADMISSION).to(torch.int32)
+    q_util, q_seq, q_next, pushed_seq, ev_s, ev_b = sq.push_batch_dev(
+        state.q_util, state.q_seq, state.q_next_seq, util, admit,
+        state.queue_cap)
+    # retroactive SHED_QUEUE flips for this batch's evicted frames: a
+    # scatter-max (codes are 0 <= 1 <= 2, dummy writes use -1 = no-op)
+    flip = ev_b >= 0
+    decisions = decisions.scatter_reduce(
+        1, torch.where(flip, ev_b, 0).to(torch.int64),
+        torch.where(flip, SHED_QUEUE, -1).to(torch.int32),
+        reduce="amax").to(torch.int8)
+    state = dataclasses.replace(
+        state, cdf_buf=cdf_buf, cdf_pos=cdf_pos, cdf_len=cdf_len,
+        cdf_counts=cdf_counts, q_util=q_util, q_seq=q_seq, q_next_seq=q_next)
+    out = {
+        "decisions": decisions,
+        "pushed_seq": pushed_seq,
+        "evicted_resident": torch.where((ev_b < 0) & (ev_s >= 0), ev_s, -1),
+        "push_evictions": (ev_s >= 0).sum(dim=-1).to(torch.int32),
+    }
+    if do_tick:
+        state, rates, resize_ev = _tick_core(state, min_proc, budget,
+                                             num_total, tick_cfg)
+        out["rates"] = rates
+        out["resize_evicted"] = resize_ev
+    return state, out
+
+
+def _serve_step(state: SessionState, frames, M_pos, norm, *, hue_ranges, bs,
+                bv, alpha, fg_threshold, use_fg, bg_valid, op, update_cdf,
+                do_tick, min_proc, budget, num_total=None,
+                tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
+    """The serve step: fused ingest (the CUDA kernel on a CUDA state) ->
+    CDF push -> admission -> queue selection -> threshold/queue-size
+    control, all launched on the state's device without a host round
+    trip of the utilities."""
+    bg0 = state.bg if bg_valid else torch.zeros_like(state.bg)
+    gain0 = state.gain if bg_valid else torch.ones_like(state.gain)
+    _, _, _, util, bg, gain = ingest_core(
+        frames, bg0, gain0, M_pos, norm, hue_ranges=hue_ranges, bs=bs,
+        bv=bv, alpha=alpha, threshold=fg_threshold, use_fg=use_fg,
+        bg_valid=bg_valid, op=op)
+    state = dataclasses.replace(
+        state, bg=bg, gain=gain,
+        bg_valid=torch.tensor(True, device=state.device))
+    return _control_core(state, util, update_cdf=update_cdf, do_tick=do_tick,
+                         min_proc=min_proc, budget=budget,
+                         num_total=num_total, tick_cfg=tick_cfg)
+
+
+class ShedSession:
+    """A camera array's Load Shedder: fused scoring + per-camera
+    admission/queues + shared-backend control loop, on one device.
+
+    Use :func:`open_session` to construct one.
+    """
+
+    def __init__(self, query: Query, num_cameras: int = 1, *,
+                 frame_shape: Optional[Tuple[int, int]] = None,
+                 model: Optional[UtilityModel] = None,
+                 train_utilities: Optional[Sequence[float]] = None,
+                 queue_size: int = 8,
+                 queue_capacity: int = 64,
+                 latency_inputs: Optional[LatencyInputs] = None,
+                 cdf_window: int = 4096,
+                 ewma_alpha: float = 0.2, ewma_alpha_up: float = 0.6,
+                 min_proc: float = 1e-6,
+                 update_cdf_online: bool = True,
+                 exact_tick: bool = False,
+                 quantile_bins: int = 256,
+                 quantile_range: Tuple[float, float] = (0.0, 1.0),
+                 device: DeviceLike = None) -> None:
+        if num_cameras < 1:
+            raise ValueError("num_cameras must be >= 1")
+        self.device = resolve_device(device)
+        self.query = query
+        self.num_cameras = int(num_cameras)
+        self.model = model
+        self.latency_inputs = latency_inputs or LatencyInputs()
+        self.ewma_alpha = float(ewma_alpha)
+        self.ewma_alpha_up = float(ewma_alpha_up)
+        self.min_proc = float(min_proc)
+        self.update_cdf_online = bool(update_cdf_online)
+        bins = int(quantile_bins)
+        if bins < 2:
+            raise ValueError(f"quantile_bins {bins} must be >= 2")
+        qlo, qhi = float(quantile_range[0]), float(quantile_range[1])
+        if not qhi > qlo:
+            raise ValueError("quantile ranges must satisfy hi > lo")
+        self.exact_tick = bool(exact_tick)
+        self.quantile_bins = bins
+        self._tick_cfg = TickConfig(
+            exact=self.exact_tick, lo=qlo, width=(qhi - qlo) / bins,
+            inv_width=bins / (qhi - qlo))
+        npix = frame_shape[0] * frame_shape[1] if frame_shape else 0
+        self.load_state(SessionState.fresh(
+            num_cameras, npix, cdf_window=cdf_window, fps=query.fps,
+            queue_size=queue_size, queue_capacity=queue_capacity,
+            quantile_bins=bins, device=self.device))
+        self.stats = ShedderStats()
+        self.per_camera_offered = np.zeros((self.num_cameras,), np.int64)
+        self.per_camera_dropped = np.zeros((self.num_cameras,), np.int64)
+        self._consts: Optional[Tuple[Any, Tuple[Any, Any, str]]] = None
+        if train_utilities is not None:
+            self.seed_cdf(train_utilities)
+
+    def load_state(self, state: SessionState) -> None:
+        """Adopt a whole ``SessionState`` (e.g. one carried over from the
+        reference by ``repro_torch.convert.state_from_numpy``): its lanes
+        move to this session's device, the host-side queue-depth cache is
+        recounted, and queued payloads fall back to ``(cam, seq)`` pairs."""
+        if state.num_cameras != self.num_cameras:
+            raise ValueError(f"state has {state.num_cameras} camera lanes, "
+                             f"session has {self.num_cameras}")
+        self.state = SessionState(**{
+            f.name: getattr(state, f.name).to(self.device)
+            for f in dataclasses.fields(state)})
+        self.queue_capacity = int(self.state.q_util.shape[1])
+        self._payloads: List[Dict[int, Any]] = [
+            {} for _ in range(self.num_cameras)]
+        # live queue depths, maintained incrementally from the compact
+        # step/pop outputs so __len__/queue_depths never transfer the
+        # (C, K) q_seq lanes to host
+        self._depths = (self.state.q_seq >= 0).sum(dim=1).cpu().numpy(
+        ).astype(np.int64)
+        self._num_active = int(self.state.active.sum())
+
+    @property
+    def _budget(self) -> float:
+        li = self.latency_inputs
+        return (self.query.latency_bound - li.net_cam_ls - li.net_ls_q
+                - li.proc_cam)
+
+    def _model_constants(self):
+        """The (M_pos, norm, op) device constants of the trained model —
+        computed once per model object, not per step."""
+        if self._consts is None or self._consts[0] is not self.model:
+            q = self.query
+            self._consts = (self.model, query_constants(
+                self.model, q.num_colors, q.bs, q.bv, q.op,
+                device=self.device))
+        return self._consts[1]
+
+    # -- training / scoring --------------------------------------------------
+
+    def fit(self, pfs: np.ndarray, labels: np.ndarray) -> UtilityModel:
+        """Train the query's utility function (Eq. 12–13) on PF matrices
+        and seed every camera's utility CDF with the train utilities."""
+        self.model = train_utility_model(
+            np.asarray(pfs, np.float32), labels, self.query.colors,
+            op=self.query.op)
+        self.seed_cdf(batch_utilities(self.model, np.asarray(pfs, np.float32),
+                                      device=self.device))
+        return self.model
+
+    def seed_cdf(self, utilities: Union[np.ndarray, Sequence[float]]) -> None:
+        """Fill every camera's CDF window with a shared utility history."""
+        us = np.asarray(utilities, np.float32).reshape(-1)
+        us = torch.as_tensor(np.broadcast_to(us, (self.num_cameras, us.size))
+                             .copy(), device=self.device)
+        st, cfg = self.state, self._tick_cfg
+        st.cdf_buf, st.cdf_pos, st.cdf_len, st.cdf_counts = _ring_push(
+            st.cdf_buf, st.cdf_pos, st.cdf_len, st.cdf_counts, us, cfg.lo,
+            cfg.inv_width)
+
+    # -- fused ingest --------------------------------------------------------
+
+    def _check_frames(self, frames) -> torch.Tensor:
+        """(C, T, H, W, 3) float32 frames on the session's device: a numpy
+        array is copied there, a tensor must already lie there."""
+        if isinstance(frames, torch.Tensor):
+            if frames.device != self.device:
+                raise ValueError(f"frames on {frames.device}, session on "
+                                 f"{self.device}")
+            frames = frames.to(torch.float32)
+        else:
+            frames = torch.as_tensor(np.asarray(frames, np.float32),
+                                     device=self.device)
+        if frames.ndim == 4:
+            frames = frames[None]
+        if frames.ndim != 5 or frames.shape[0] != self.num_cameras:
+            raise ValueError(
+                f"expected ({self.num_cameras}, T, H, W, 3) frames, "
+                f"got {tuple(frames.shape)}")
+        n = frames.shape[2] * frames.shape[3]
+        st = self.state
+        if st.bg.shape[1] != n:
+            if bool(st.bg_valid):
+                raise ValueError(
+                    f"frame size {n} px does not match carried background "
+                    f"state {tuple(st.bg.shape)}")
+            st.bg = torch.zeros((self.num_cameras, n), dtype=torch.float32,
+                                device=self.device)
+        return frames.contiguous()
+
+    def ingest(self, frames) -> IngestResult:
+        """Score one frame batch for the whole camera array in one fused
+        ingest, carrying per-camera background state.
+
+        frames: (C, T, H, W, 3) float32 RGB in [0, 255] — or
+        (T, H, W, 3) for single-camera sessions.
+        """
+        frames = self._check_frames(frames)
+        st = self.state
+        state_in = (IngestState(bg=st.bg, gain=st.gain)
+                    if bool(st.bg_valid) else None)
+        q = self.query
+        pf, hf, util, state_out = ingest_pipeline(
+            frames, q.colors, self.model, state=state_in, alpha=q.alpha,
+            threshold=q.threshold, use_foreground=q.use_foreground,
+            op=q.op, bs=q.bs, bv=q.bv)
+        st.bg = state_out.bg
+        st.gain = state_out.gain.reshape(-1)
+        st.bg_valid = torch.tensor(True, device=self.device)
+        return IngestResult(
+            pf=pf.cpu().numpy(), hue_fraction=hf.cpu().numpy(),
+            utility=None if util is None else util.cpu().numpy())
+
+    # -- the serve step ------------------------------------------------------
+
+    def step(self, frames=None, *, utilities: Optional[np.ndarray] = None,
+             items: Optional[Sequence[Sequence[Any]]] = None,
+             tick: bool = True) -> StepResult:
+        """One serve-loop iteration for the whole camera array: score ->
+        CDF push -> admission -> queue selection -> (``tick=True``)
+        threshold/queue-size re-derivation.
+
+        Give either ``frames`` — a (C, T, H, W, 3) batch (numpy, or a
+        tensor already on the session's device) scored by the fused
+        ingest kernel (requires a trained model) — or precomputed
+        ``utilities`` (C, T) to run the control plane alone.
+        ``items[c][t]`` are frame payloads for ``next_frame``; absent,
+        queued frames are identified by their ``(cam, t)`` index pair.
+        """
+        if (frames is None) == (utilities is None):
+            raise ValueError("pass exactly one of frames= or utilities=")
+        kw = dict(update_cdf=self.update_cdf_online, do_tick=bool(tick),
+                  min_proc=self.min_proc, budget=self._budget,
+                  num_total=self._num_active, tick_cfg=self._tick_cfg)
+        if frames is not None:
+            if self.model is None:
+                raise ValueError("step(frames=...) needs a trained model "
+                                 "(call fit() or pass model=)")
+            frames = self._check_frames(frames)
+            if frames.shape[1] == 0:
+                raise ValueError("empty frame batch")
+            q = self.query
+            C, T, H, W = frames.shape[:4]
+            M_pos, norm, op = self._model_constants()
+            self.state, out = _serve_step(
+                self.state, frames.reshape(C, T, H * W, 3), M_pos, norm,
+                hue_ranges=q.hue_ranges, bs=q.bs, bv=q.bv, alpha=q.alpha,
+                fg_threshold=q.threshold, use_fg=q.use_foreground,
+                bg_valid=bool(self.state.bg_valid), op=op, **kw)
+            return self._absorb_control(out, items, tick)
+        util = np.asarray(utilities, np.float32)
+        if util.ndim == 1:
+            util = util[None]
+        if util.shape[0] != self.num_cameras:
+            raise ValueError(
+                f"expected ({self.num_cameras}, T) utilities, "
+                f"got {util.shape}")
+        if util.shape[1] == 0:
+            raise ValueError("empty utility batch")
+        self.state, out = _control_core(
+            self.state, torch.as_tensor(util, device=self.device), **kw)
+        return self._absorb_control(out, items, tick)
+
+    def _absorb_control(self, out: Dict[str, torch.Tensor],
+                        items: Optional[Sequence[Sequence[Any]]],
+                        ticked: bool) -> StepResult:
+        """Fold a control step's compact outputs into host bookkeeping:
+        stats, payload registry, per-camera counters."""
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        decisions = host["decisions"]
+        pushed_seq = host["pushed_seq"]
+        ev_res = host["evicted_resident"]
+        push_ev = host["push_evictions"]
+        C = decisions.shape[0]
+        offered = decisions >= 0
+        self.stats.offered += int(offered.sum())
+        self.stats.dropped_admission += int((decisions == SHED_ADMISSION).sum())
+        self.stats.dropped_queue += int(push_ev.sum())
+        self.per_camera_offered += offered.sum(axis=1)
+        res_cnt = (ev_res >= 0).sum(axis=1)
+        self.per_camera_dropped += (decisions > ADMIT).sum(axis=1) + res_cnt
+        # net queue-depth change: frames that survived the batch as
+        # ADMIT minus evicted residents (resize evictions below)
+        self._depths += (decisions == ADMIT).sum(axis=1) - res_cnt
+        evicted: List[np.ndarray] = []
+        for c in range(C):
+            pl = self._payloads[c]
+            for t in np.flatnonzero(decisions[c] == ADMIT):
+                item = items[c][t] if items is not None else (c, int(t))
+                pl[int(pushed_seq[c, t])] = item
+            evs = ev_res[c][ev_res[c] >= 0]
+            for s in evs:
+                pl.pop(int(s), None)
+            evicted.append(evs.astype(np.int64))
+        rates = None
+        if ticked:
+            rates = host["rates"]
+            self._absorb_resize(host["resize_evicted"], evicted)
+        return StepResult(decisions=decisions, pushed_seq=pushed_seq,
+                          evicted=evicted, target_drop_rate=rates)
+
+    def _absorb_resize(self, rz: np.ndarray,
+                       evicted: Optional[List[np.ndarray]] = None) -> None:
+        """Book a tick's (C, K) resize evictions (-1 padded)."""
+        cnt = (rz >= 0).sum(axis=1)
+        self.stats.dropped_queue += int(cnt.sum())
+        self.per_camera_dropped += cnt
+        self._depths -= cnt
+        for c in np.flatnonzero(cnt):
+            evs = rz[c][rz[c] >= 0]
+            pl = self._payloads[c]
+            for s in evs:
+                pl.pop(int(s), None)
+            if evicted is not None:
+                evicted[c] = np.concatenate([evicted[c],
+                                             evs.astype(np.int64)])
+
+    # -- admission + queues --------------------------------------------------
+
+    def admit(self, utilities: np.ndarray,
+              items: Optional[Sequence[Sequence[Any]]] = None) -> np.ndarray:
+        """Vectorized admission + queue decisions for a scored (C, T)
+        batch (float32 end to end); returns the (C, T) int8 decision
+        codes. A queue eviction of an earlier frame of this batch flips
+        it to ``SHED_QUEUE`` retroactively."""
+        return self.step(utilities=utilities, items=items,
+                         tick=False).decisions
+
+    def next_frame(self, cam: Optional[int] = None) -> Optional[Any]:
+        """Transmission control: send the best queued frame — of one
+        camera, or (default) the best across the whole array."""
+        st = self.state
+        st.q_util, st.q_seq, c, seqv = sq.pop_best_dev(st.q_util, st.q_seq,
+                                                       cam)
+        c, seqv = int(c), int(seqv)
+        if seqv < 0:
+            return None
+        self._depths[c] -= 1
+        item = self._payloads[c].pop(seqv, (c, seqv))
+        self.stats.sent += 1
+        return item
+
+    def next_frames(self, k: int,
+                    cams: Optional[Sequence[int]] = None) -> List[Any]:
+        """Batched transmission control: pop the ``k`` best queued
+        frames in one top-k selection — the exact frames (and order) a
+        loop of ``next_frame()`` calls would send. ``cams`` restricts the
+        pool to those camera lanes. Returns up to ``k`` payloads."""
+        if k <= 0:
+            return []
+        rows = None
+        if cams is not None:
+            rows = torch.zeros((self.num_cameras,), dtype=torch.bool,
+                               device=self.device)
+            rows[[int(c) for c in cams]] = True
+        st = self.state
+        st.q_util, st.q_seq, pc, ps = sq.pop_topk_dev(st.q_util, st.q_seq,
+                                                      int(k), rows)
+        items: List[Any] = []
+        for c, s in zip(pc.tolist(), ps.tolist()):
+            if s < 0:               # -1 padding: pool drained
+                break
+            self._depths[c] -= 1
+            items.append(self._payloads[c].pop(s, (c, s)))
+        self.stats.sent += len(items)
+        return items
+
+    def __len__(self) -> int:
+        return int(self._depths.sum())
+
+    def queue_depths(self) -> np.ndarray:
+        """Live per-camera send-queue depths, ``(C,)`` ints (a host-side
+        counter maintained by every push/pop/resize)."""
+        return self._depths.copy()
+
+    # -- control loop (Eq. 18–20), vectorized over cameras -------------------
+
+    @property
+    def latency_bound(self) -> float:
+        return self.query.latency_bound
+
+    def expected_proc(self, cam: Optional[int] = None) -> float:
+        """Current backend per-frame latency estimate: camera ``cam``'s
+        lane, or (default) the worst lane."""
+        q = self.state.proc_q.cpu().numpy()
+        if cam is not None:
+            return float(q[int(cam)])
+        return float(q.max(initial=0.0))
+
+    def report_backend_latency(self, proc_latency: float,
+                               cam: Optional[int] = None) -> None:
+        """Backend-latency metric feed: asymmetric EWMA (overload is
+        detected fast, recovery smoothed) on ``(C,)`` lanes; a scalar
+        call (``cam=None``) updates every lane. The EWMA step is taken in
+        float64 and rounded to float32, as the reference's host twin
+        does, so the lanes stay bit-identical to it."""
+        st = self.state
+        q = st.proc_q
+        x = torch.full_like(q, max(float(proc_latency), self.min_proc))
+        f64 = dict(dtype=torch.float64, device=self.device)
+        a = torch.where(x > q, torch.tensor(self.ewma_alpha_up, **f64),
+                        torch.tensor(self.ewma_alpha, **f64))
+        ew = (q.to(torch.float64) + a * (x - q).to(torch.float64)).to(
+            torch.float32)
+        new = torch.where(st.proc_seen, ew, x)
+        if cam is None:
+            st.proc_q = new
+            st.proc_seen = torch.ones_like(st.proc_seen)
+        else:
+            upd = torch.arange(self.num_cameras,
+                               device=self.device) == int(cam)
+            st.proc_q = torch.where(upd, new, q)
+            st.proc_seen = st.proc_seen | upd
+
+    def report_ingress_fps(self, fps: float, cam: Optional[int] = None) -> None:
+        """Observed ingress rate: per camera, or an aggregate rate split
+        evenly across the array's lanes (the aggregate form computes in
+        float64, the per-camera form in float32, as the reference's host
+        twin does)."""
+        st = self.state
+        q = st.fps_obs
+        C = self.num_cameras
+        if cam is None:
+            x = torch.full((C,), float(fps) / C, dtype=torch.float64,
+                           device=self.device)
+            upd = torch.ones((C,), dtype=torch.bool, device=self.device)
+            q = q.to(torch.float64)
+        else:
+            upd = torch.arange(C, device=self.device) == int(cam)
+            x = torch.where(upd, float(fps), q)
+        ew = q + self.ewma_alpha * (x - q)
+        st.fps_obs = torch.where(upd, torch.where(st.fps_seen, ew, x),
+                                 q).to(torch.float32)
+        st.fps_seen = st.fps_seen | upd
+
+    def tick(self) -> Dict[str, Any]:
+        """Re-derive per-camera thresholds (Eq. 17–19) and queue sizes
+        (Eq. 20) from the current metric lanes — one batched quantile +
+        queue resize over all C camera lanes."""
+        self.state, rates, resize_ev = _tick_core(
+            self.state, self.min_proc, self._budget,
+            num_total=self._num_active, tick_cfg=self._tick_cfg)
+        rates = rates.cpu().numpy()
+        self._absorb_resize(resize_ev.cpu().numpy())
+        st = self.state
+        threshold = st.threshold.cpu().numpy()
+        # report the EFFECTIVE queue sizes: Eq. 20's cap clipped to the
+        # physical (C, K) lane bound the queues actually honor
+        queue_cap = np.minimum(st.queue_cap.cpu().numpy(),
+                               self.queue_capacity)
+        finite = np.isfinite(threshold)
+        act = st.active.cpu().numpy()
+        return {
+            "target_drop_rate": float(rates[act].mean()) if act.any()
+            else 0.0,
+            "threshold": float(threshold[finite].mean()) if finite.any()
+            else -np.inf,
+            "queue_size": int(queue_cap.max()),
+            "per_camera": {
+                "target_drop_rate": rates.tolist(),
+                "threshold": threshold.tolist(),
+                "queue_size": queue_cap.tolist(),
+            },
+        }
+
+
+def open_session(query: Query, num_cameras: int = 1, **kw: Any) -> ShedSession:
+    """Open a ShedSession for ``num_cameras`` cameras running ``query``.
+
+    Keyword options: ``device`` (default: the CUDA card; pass
+    ``device="cpu"`` for the plain CPU path — without a card and without
+    it, this raises), ``frame_shape=(H, W)`` (pre-allocates background
+    lanes), ``model`` (a trained UtilityModel; or call ``session.fit``),
+    ``train_utilities`` (seeds the admission CDFs), ``queue_size``
+    (initial per-camera queue cap), ``queue_capacity`` (the physical
+    (C, K) lane bound the dynamic cap is clipped to), ``latency_inputs``,
+    ``cdf_window``, ``exact_tick``, ``quantile_bins``/``quantile_range``.
+    """
+    return ShedSession(query, num_cameras, **kw)
+
+
+__all__ = [
+    "ADMIT", "SHED_ADMISSION", "SHED_QUEUE",
+    "IngestResult", "Query", "SessionState", "ShedSession", "StepResult",
+    "TickConfig", "open_session",
+]

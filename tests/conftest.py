@@ -46,3 +46,9 @@ except ImportError:
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; the test skips itself without "
+        "one (run them on the card with `pytest -m cuda`)")
