@@ -23,7 +23,11 @@ per-camera tensor lanes, one fused ingest per camera batch.
     session's device without utilities leaving it — only compact
     ``(C, T)`` decision codes and evicted queue seqs come back.
     ``ingest``/``admit``/``tick`` are the split phases of the same
-    machinery; ``next_frame``/``next_frames`` are transmission control.
+    machinery; ``offer``/``offer_batch`` admit pre-scored frames one at a
+    time or coalesced; ``next_frame``/``next_frames`` are transmission
+    control; ``lane``/``attach_camera``/``detach_camera`` map external
+    camera ids onto lanes of a live session (camera churn) and
+    ``set_rate_floor`` is the degraded-mode floor under Eq. 19.
 
 The control plane is one torch implementation that runs on whichever
 device the session has; on the CPU its results are bit-identical to the
@@ -35,6 +39,7 @@ on the card to this same code on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -69,6 +74,9 @@ from repro_torch.kernels.hsv_features.ops import (
 ADMIT = 0
 SHED_ADMISSION = 1
 SHED_QUEUE = 2
+
+_DECISION_NAMES = {ADMIT: "queued", SHED_ADMISSION: "shed_admission",
+                   SHED_QUEUE: "shed_queue"}
 
 
 class TickConfig(NamedTuple):
@@ -166,10 +174,11 @@ class SessionState:
       * ``queue_cap (C,)`` — dynamic queue sizes (Eq. 20).
       * ``q_util`` / ``q_seq (C, K)`` + ``q_next_seq (C,)`` — the
         utility-ordered queues as array lanes (empty slots ``(-inf, -1)``).
-      * ``active (C,)``, ``rate_floor (C,)`` and the ``s2_*`` lanes are
-        carried so that a reference state maps one to one; this slice
-        keeps every lane active, the floor at 0 and the stage-2 lanes
-        untouched.
+      * ``active (C,)`` masks detached camera lanes (threshold +inf,
+        excluded from Eq. 19) and ``rate_floor (C,)`` is the degraded-mode
+        floor under every lane's target drop rate; the ``s2_*`` lanes are
+        carried so that a reference state maps one to one and stay
+        untouched (the cascade is not ported).
     """
     bg: torch.Tensor          # (C, N) float32
     gain: torch.Tensor        # (C,) float32
@@ -278,30 +287,46 @@ class StepResult:
 # Serve-step cores (torch, on the state's device)
 # ---------------------------------------------------------------------------
 
-def _ring_push(buf, pos, ln, counts, us, lo: float, inv_width: float):
-    """Append a (C, T) utility batch into the per-camera ring buffers.
-    The (C, B) bucket ``counts`` are maintained incrementally (ring-wrap
-    aware: slot s is pre-push live iff s < len, wherever ``pos``
-    wrapped), so they always equal a recount of the live window."""
+def _ring_push(buf, pos, ln, counts, us, lo: float, inv_width: float,
+               mask=None):
+    """Append a (C, T) utility batch into the per-camera ring buffers;
+    ``mask`` (C, T) marks the real entries (None = all), which land in
+    order on consecutive slots of their row. The (C, B) bucket ``counts``
+    are maintained incrementally (ring-wrap aware: slot s is pre-push
+    live iff s < len, wherever ``pos`` wrapped), so they always equal a
+    recount of the live window."""
     C, W = buf.shape
     B = counts.shape[1]
-    if us.shape[1] >= W:                       # only the tail can survive
-        us = us[:, -W:]
-    T = us.shape[1]
-    idx = ((pos[:, None] + torch.arange(T, dtype=torch.int32,
-                                        device=buf.device)[None, :]) % W
-           ).to(torch.int64)
-    old = torch.gather(buf, 1, idx)
-    evict = idx < ln[:, None]
-    buf = buf.scatter(1, idx, us)
+    if mask is None:
+        if us.shape[1] >= W:                   # only the tail can survive
+            us = us[:, -W:]
+        T = us.shape[1]
+        idx = ((pos[:, None] + torch.arange(T, dtype=torch.int32,
+                                            device=buf.device)[None, :]) % W
+               ).to(torch.int64)
+        old = torch.gather(buf, 1, idx)
+        evict = idx < ln[:, None]
+        buf = buf.scatter(1, idx, us)
+        add = torch.ones_like(us, dtype=torch.int32)
+        cnt = T
+    else:
+        kk = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32)
+        # absent entries go to a padding slot W that is cut off after
+        idx = torch.where(mask, (pos[:, None] + kk - 1) % W, W).to(
+            torch.int64)
+        old = torch.gather(buf, 1, torch.clamp_max(idx, W - 1))
+        evict = mask & (idx < ln[:, None])
+        buf = torch.cat([buf, buf.new_zeros((C, 1))], dim=1).scatter(
+            1, idx, us)[:, :W]
+        add = mask.to(torch.int32)
+        cnt = kk[:, -1]
     counts = counts.scatter_add(
-        1, bucket_index_dev(us, lo, inv_width, B).to(torch.int64),
-        torch.ones_like(us, dtype=torch.int32))
+        1, bucket_index_dev(us, lo, inv_width, B).to(torch.int64), add)
     counts = counts.scatter_add(
         1, bucket_index_dev(old, lo, inv_width, B).to(torch.int64),
         -evict.to(torch.int32))
-    pos = ((pos + T) % W).to(torch.int32)
-    ln = torch.clamp_max(ln + T, W).to(torch.int32)
+    pos = ((pos + cnt) % W).to(torch.int32)
+    ln = torch.clamp_max(ln + cnt, W).to(torch.int32)
     return buf, pos, ln, counts
 
 
@@ -355,11 +380,13 @@ def _tick_core(state: SessionState, min_proc: float, budget: float,
     return state, rates, resize_ev
 
 
-def _control_core(state: SessionState, util, *, update_cdf: bool,
-                  do_tick: bool, min_proc: float, budget: float,
-                  num_total: Optional[int] = None,
+def _control_core(state: SessionState, util, present=None, *,
+                  update_cdf: bool, do_tick: bool, min_proc: float,
+                  budget: float, num_total: Optional[int] = None,
                   tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
     """CDF push -> admission -> queue selection -> (optional) tick.
+    ``present`` (C, T) marks the real entries of a ragged batch (None =
+    all); absent slots get decision code -1 and touch no state.
     Returns (state', outputs-dict of compact tensors)."""
     util = util.to(torch.float32)
     C, T = util.shape
@@ -368,9 +395,13 @@ def _control_core(state: SessionState, util, *, update_cdf: bool,
     if update_cdf:
         cdf_buf, cdf_pos, cdf_len, cdf_counts = _ring_push(
             cdf_buf, cdf_pos, cdf_len, cdf_counts, util, tick_cfg.lo,
-            tick_cfg.inv_width)
+            tick_cfg.inv_width, present)
     admit = ~(util < state.threshold[:, None])
+    if present is not None:
+        admit = present & admit
     decisions = torch.where(admit, ADMIT, SHED_ADMISSION).to(torch.int32)
+    if present is not None:
+        decisions = torch.where(present, decisions, -1)
     q_util, q_seq, q_next, pushed_seq, ev_s, ev_b = sq.push_batch_dev(
         state.q_util, state.q_seq, state.q_next_seq, util, admit,
         state.queue_cap)
@@ -464,6 +495,7 @@ class ShedSession:
         self._tick_cfg = TickConfig(
             exact=self.exact_tick, lo=qlo, width=(qhi - qlo) / bins,
             inv_width=bins / (qhi - qlo))
+        self._queue_size = int(queue_size)
         npix = frame_shape[0] * frame_shape[1] if frame_shape else 0
         self.load_state(SessionState.fresh(
             num_cameras, npix, cdf_window=cdf_window, fps=query.fps,
@@ -485,7 +517,7 @@ class ShedSession:
             raise ValueError(f"state has {state.num_cameras} camera lanes, "
                              f"session has {self.num_cameras}")
         self.state = SessionState(**{
-            f.name: getattr(state, f.name).to(self.device)
+            f.name: getattr(state, f.name).to(self.device, copy=True)
             for f in dataclasses.fields(state)})
         self.queue_capacity = int(self.state.q_util.shape[1])
         self._payloads: List[Dict[int, Any]] = [
@@ -495,7 +527,124 @@ class ShedSession:
         # (C, K) q_seq lanes to host
         self._depths = (self.state.q_seq >= 0).sum(dim=1).cpu().numpy(
         ).astype(np.int64)
-        self._num_active = int(self.state.active.sum())
+        # external camera id -> lane; unmapped lanes sit in a min-heap, so
+        # lane() claims the smallest free lane (first-seen order)
+        self._lane_of: Dict[Any, int] = {}
+        self._free_lanes: List[int] = list(range(self.num_cameras))
+        self._active_host = self.state.active.cpu().numpy().copy()
+        self._num_active = int(self._active_host.sum())
+        self._rate_floor_host = float(self.state.rate_floor.max())
+
+    # -- camera lanes / churn ------------------------------------------------
+
+    def lane(self, cam_id: Any) -> int:
+        """Map an external camera id to a state lane (first-seen order).
+
+        An unknown id claims the lowest free lane; a lane left inactive
+        by ``detach_camera`` is reset to fresh per-camera state for the
+        newcomer (an implicit ``attach_camera``)."""
+        lane = self._lane_of.get(cam_id)
+        if lane is None:
+            if not self._free_lanes:
+                raise ValueError(
+                    f"camera id {cam_id!r} exceeds the session's "
+                    f"{self.num_cameras} lanes")
+            lane = heapq.heappop(self._free_lanes)
+            self._lane_of[cam_id] = lane
+            if not self._active_host[lane]:
+                self._reset_lane(lane, active=True)
+                self._active_host[lane] = True
+                self._num_active += 1
+        return lane
+
+    @property
+    def num_active(self) -> int:
+        """Live camera count — Eq. 19's backend-sharing multiplier."""
+        return self._num_active
+
+    def attach_camera(self, cam_id: Any) -> int:
+        """Add a camera to a live session: claim a free lane (fresh
+        per-camera state when reclaiming a detached lane) and return
+        it. Raises when the id is already attached or no lane is free."""
+        if cam_id in self._lane_of:
+            raise ValueError(f"camera {cam_id!r} is already attached")
+        return self.lane(cam_id)
+
+    def detach_camera(self, cam_id: Any) -> List[Any]:
+        """Remove a live camera: its queued frames are drained (returned,
+        and counted as queue sheds — they will never transmit), the lane
+        is masked out of admission/control (threshold pinned to +inf,
+        Eq. 19 excludes it), and the lane is freed for reuse."""
+        lane = self._lane_of.pop(cam_id, None)
+        if lane is None:
+            raise ValueError(f"unknown camera id {cam_id!r}")
+        seq_row = self.state.q_seq[lane].cpu().numpy()
+        drained = [self._payloads[lane].pop(int(s), (lane, int(s)))
+                   for s in seq_row[seq_row >= 0]]
+        self._payloads[lane] = {}
+        self.stats.dropped_queue += len(drained)
+        self.per_camera_dropped[lane] += len(drained)
+        self._depths[lane] = 0
+        self._reset_lane(lane, active=False)
+        heapq.heappush(self._free_lanes, lane)
+        self._active_host[lane] = False
+        self._num_active -= 1
+        return drained
+
+    def _write_lane(self, name: str, lane: int, value: Any) -> None:
+        """Set one lane row of a state leaf (a new tensor, so no earlier
+        holder of the leaf sees the write)."""
+        arr = getattr(self.state, name).clone()
+        arr[lane] = torch.as_tensor(np.asarray(value), dtype=arr.dtype)
+        setattr(self.state, name, arr)
+
+    def _reset_lane(self, lane: int, active: bool) -> None:
+        """Fresh per-camera state for one lane — the leaves the
+        reference's ``_reset_lane`` resets and no others. Inactive lanes
+        park at threshold=+inf (admit nothing); (re)attached lanes start
+        at -inf (admit everything) until their CDF window fills."""
+        q = self.query
+        K = self.queue_capacity
+        B = int(self.state.cdf_counts.shape[1])
+        for name, v in (
+                ("gain", 1.0), ("cdf_len", 0), ("cdf_pos", 0),
+                ("cdf_counts", np.zeros((B,), np.int32)),
+                ("threshold", np.float32(-np.inf if active else np.inf)),
+                ("proc_q", 0.0), ("proc_seen", False),
+                ("fps_obs", float(q.fps)), ("fps_seen", False),
+                ("queue_cap", self._queue_size), ("q_next_seq", 0),
+                ("q_util", np.full((K,), -np.inf, np.float32)),
+                ("q_seq", np.full((K,), -1, np.int32)),
+                ("rate_floor", np.float32(self._rate_floor_host)),
+                ("s2_len", 0), ("s2_pos", 0),
+                ("s2_threshold",
+                 np.float32(-np.inf if active else np.inf)),
+                ("s2_counts", np.zeros((B,), np.int32)),
+                ("active", bool(active))):
+            self._write_lane(name, lane, v)
+        self._depths[lane] = 0
+        if self.state.bg.shape[1]:
+            self._write_lane("bg", lane,
+                             np.zeros((self.state.bg.shape[1],), np.float32))
+
+    # -- degraded-mode control (serve/fault.py drives this) ------------------
+
+    @property
+    def rate_floor(self) -> float:
+        return self._rate_floor_host
+
+    def set_rate_floor(self, floor: float) -> None:
+        """Degraded-regime floor under every lane's Eq. 19 target drop
+        rate, applied at the next ``tick``/``step``. 0.0 restores the
+        normal regime bit-identically (``max(r, 0)`` is the identity on
+        the clipped rates)."""
+        f = float(floor)
+        if not 0.0 <= f <= 1.0:
+            raise ValueError(f"rate floor {f} outside [0, 1]")
+        self._rate_floor_host = f
+        self.state.rate_floor = torch.full((self.num_cameras,), f,
+                                           dtype=torch.float32,
+                                           device=self.device)
 
     @property
     def _budget(self) -> float:
@@ -587,6 +736,30 @@ class ShedSession:
         return IngestResult(
             pf=pf.cpu().numpy(), hue_fraction=hf.cpu().numpy(),
             utility=None if util is None else util.cpu().numpy())
+
+    @property
+    def ingest_state(self) -> IngestState:
+        """The kernel-facing ``(bg, gain)`` lanes (for host handoff)."""
+        return IngestState(bg=self.state.bg, gain=self.state.gain)
+
+    def set_ingest_state(self, state: Optional[IngestState]) -> None:
+        """Adopt carried ``(bg, gain)`` lanes (tensors or arrays; a
+        single-camera state gets a camera lane), or forget them with
+        ``None`` so the next batch's frame 0 seeds the background."""
+        if state is None:
+            self.state.bg_valid = torch.tensor(False, device=self.device)
+            return
+        bg = torch.as_tensor(state.bg, dtype=torch.float32).to(self.device)
+        if bg.ndim == 1:
+            bg = bg[None]
+        if bg.shape[0] != self.num_cameras:
+            raise ValueError(
+                f"state has {bg.shape[0]} camera lanes, session has "
+                f"{self.num_cameras}")
+        self.state.bg = bg.contiguous()
+        self.state.gain = torch.as_tensor(
+            state.gain, dtype=torch.float32).to(self.device).reshape(-1)
+        self.state.bg_valid = torch.tensor(True, device=self.device)
 
     # -- the serve step ------------------------------------------------------
 
@@ -703,6 +876,96 @@ class ShedSession:
         return self.step(utilities=utilities, items=items,
                          tick=False).decisions
 
+    def offer(self, item: Any, utility: float,
+              cam: Optional[int] = None) -> str:
+        """Frame-at-a-time admission (the simulator/serving surface).
+
+        Returns 'queued' | 'shed_admission' | 'shed_queue'. The camera
+        lane comes from ``cam``, else from ``item.cam_id`` (external ids
+        are mapped to lanes in first-seen order), else lane 0. The CDF
+        ring and the queue lanes are updated on the session's device; one
+        small transfer brings the decision back.
+        """
+        c = self.lane(getattr(item, "cam_id", 0)) if cam is None else int(cam)
+        self.stats.offered += 1
+        self.per_camera_offered[c] += 1
+        st, cfg, dev = self.state, self._tick_cfg, self.device
+        C = self.num_cameras
+        u = torch.tensor(np.float32(utility), device=dev)
+        row = torch.arange(C, device=dev) == c
+        if self.update_cdf_online:
+            st.cdf_buf, st.cdf_pos, st.cdf_len, st.cdf_counts = _ring_push(
+                st.cdf_buf, st.cdf_pos, st.cdf_len, st.cdf_counts,
+                u.expand(C, 1), cfg.lo, cfg.inv_width, row[:, None])
+        shed = u < st.threshold[c]
+        do_push = row & ~shed
+        st.q_util, st.q_seq, st.q_next_seq, pushed, evicted, inc_ev = \
+            sq.push_one_dev(st.q_util, st.q_seq, st.q_next_seq,
+                            u.expand(C), do_push, st.queue_cap)
+        code = torch.where(shed, SHED_ADMISSION,
+                           torch.where(inc_ev[c], SHED_QUEUE, ADMIT))
+        code, pushed, evicted = torch.stack(
+            [code.to(torch.int32), pushed[c], evicted[c]]).tolist()
+        if code == SHED_ADMISSION:
+            self.stats.dropped_admission += 1
+            self.per_camera_dropped[c] += 1
+            return "shed_admission"
+        if evicted >= 0:
+            self.stats.dropped_queue += 1
+            self.per_camera_dropped[c] += 1
+        if code == SHED_QUEUE:
+            return "shed_queue"
+        self._payloads[c][pushed] = item
+        if evicted >= 0:
+            self._payloads[c].pop(evicted, None)
+        else:
+            self._depths[c] += 1        # push without eviction: net +1
+        return "queued"
+
+    def offer_batch(self, items: Sequence[Any],
+                    utilities: Sequence[float],
+                    cams: Optional[Sequence[int]] = None) -> List[str]:
+        """Admit several frames that arrived together — ONE vectorized
+        control pass instead of per-frame ``offer`` calls, with identical
+        decisions/state (thresholds only move on ``tick``, so coalescing
+        commutes). Lanes come from ``cams`` or each item's ``cam_id``;
+        multiple frames may share a camera (kept in order).
+
+        Returns per-item 'queued' | 'shed_admission' | 'shed_queue'.
+        """
+        if cams is None:
+            lanes = [self.lane(getattr(it, "cam_id", 0)) for it in items]
+        else:
+            lanes = [int(c) for c in cams]
+        C = self.num_cameras
+        per_cam: List[List[int]] = [[] for _ in range(C)]
+        for i, c in enumerate(lanes):
+            per_cam[c].append(i)
+        T = max((len(v) for v in per_cam), default=0)
+        if T == 0:
+            return []
+        util = np.zeros((C, T), np.float32)
+        present = np.zeros((C, T), bool)
+        slot_of: Dict[Tuple[int, int], int] = {}
+        batch_items: List[List[Any]] = [[None] * T for _ in range(C)]
+        for c in range(C):
+            for t, i in enumerate(per_cam[c]):
+                util[c, t] = np.float32(utilities[i])
+                present[c, t] = True
+                batch_items[c][t] = items[i]
+                slot_of[(c, t)] = i
+        self.state, out = _control_core(
+            self.state, torch.as_tensor(util, device=self.device),
+            torch.as_tensor(present, device=self.device),
+            update_cdf=self.update_cdf_online, do_tick=False,
+            min_proc=self.min_proc, budget=self._budget,
+            num_total=self._num_active, tick_cfg=self._tick_cfg)
+        res = self._absorb_control(out, batch_items, ticked=False)
+        codes = [""] * len(items)
+        for (c, t), i in slot_of.items():
+            codes[i] = _DECISION_NAMES[int(res.decisions[c, t])]
+        return codes
+
     def next_frame(self, cam: Optional[int] = None) -> Optional[Any]:
         """Transmission control: send the best queued frame — of one
         camera, or (default) the best across the whole array."""
@@ -749,6 +1012,15 @@ class ShedSession:
         """Live per-camera send-queue depths, ``(C,)`` ints (a host-side
         counter maintained by every push/pop/resize)."""
         return self._depths.copy()
+
+    def observed_drop_rate(self, cam: int = 0) -> float:
+        """Fraction of camera ``cam``'s history below its threshold."""
+        st = self.state
+        n = int(st.cdf_len[cam])
+        if n == 0:
+            return 0.0
+        return float((st.cdf_buf[cam, :n] < st.threshold[cam]).to(
+            torch.float64).mean())
 
     # -- control loop (Eq. 18–20), vectorized over cameras -------------------
 
@@ -826,7 +1098,9 @@ class ShedSession:
         queue_cap = np.minimum(st.queue_cap.cpu().numpy(),
                                self.queue_capacity)
         finite = np.isfinite(threshold)
-        act = st.active.cpu().numpy()
+        # aggregate over live lanes only: detached lanes carry rate 0 and
+        # threshold +inf
+        act = self._active_host
         return {
             "target_drop_rate": float(rates[act].mean()) if act.any()
             else 0.0,

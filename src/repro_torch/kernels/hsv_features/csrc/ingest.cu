@@ -30,7 +30,8 @@
 // Launches per call: 1 init + T x (frame + gain) + 1 finalize, all on the
 // caller's stream, no host synchronisation.
 //
-// Parity with the reference (each one is also stated in the tests):
+// Parity with the reference (each one is also stated in the tests; the
+// per-pixel helpers live in hsv_common.cuh, shared with hist.cu):
 //  * hue uses the floor-mod of JAX, fmodf then +6 where the remainder is
 //    non-zero and negative (fmodf alone keeps the dividend's sign);
 //  * the joint bin truncates the scaled float to int, then clips;
@@ -47,9 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_COLORS 4
-#define MAX_RANGES 2
-#define MAX_COUNTERS 256
+#include "hsv_common.cuh"
+
 #define GAIN_MIN 0.25f
 #define GAIN_MAX 4.0f
 #define THREADS 256
@@ -71,11 +71,6 @@ struct IngestParams {
 };
 
 }  // extern "C"
-
-__device__ __forceinline__ float floor_mod6(float x) {
-    float m = fmodf(x, 6.0f);
-    return (m != 0.0f && m < 0.0f) ? m + 6.0f : m;
-}
 
 __global__ void init_kernel(IngestParams p, const float* __restrict__ gain0,
                             float* __restrict__ gain, int* __restrict__ counts,
@@ -134,15 +129,8 @@ frame_kernel(IngestParams p, int t, const float* __restrict__ rgb,
         const float r = px[3 * (size_t)i];
         const float gg = px[3 * (size_t)i + 1];
         const float b = px[3 * (size_t)i + 2];
-        const float v = fmaxf(fmaxf(r, gg), b);
-        const float cr = v - fminf(fminf(r, gg), b);
-        const float s = v > 0.0f ? cr / fmaxf(v, 1e-9f) * 255.0f : 0.0f;
-        const float sc = cr > 0.0f ? cr : 1.0f;
-        float h;
-        if (v == r) h = floor_mod6((gg - b) / sc);
-        else if (v == gg) h = (b - r) / sc + 2.0f;
-        else h = (r - gg) / sc + 4.0f;
-        h = cr > 0.0f ? h * 30.0f : 0.0f;
+        float h, s, v;
+        rgb_to_hsv(r, gg, b, h, s, v);
 
         const float base = t == 0 ? (p.bg_valid ? base0[i] : v) : bgc[i];
         const float comp = v / g;
@@ -153,16 +141,9 @@ frame_kernel(IngestParams p, int t, const float* __restrict__ rgb,
         if (!fg) continue;
 
         fg_n += 1;
-        const int sbin = min(max((int)(s * p.sscale), 0), p.bs - 1);
-        const int vbin = min(max((int)(v * p.vscale), 0), p.bv - 1);
-        const int joint = sbin * p.bv + vbin;
+        const int joint = joint_bin(s, v, p.sscale, p.vscale, p.bs, p.bv);
         for (int k = 0; k < p.nc; ++k) {
-            bool in = false;
-            for (int q = 0; q < p.n_ranges[k]; ++q) {
-                const int j = k * MAX_RANGES + q;
-                in = in || (h >= p.hue_lo[j] && h < p.hue_hi[j]);
-            }
-            if (in) {
+            if (in_hue(h, k, p)) {
                 atomicAdd(&s_counts[k * nb + joint], 1);
                 tot[k] += 1;
             }

@@ -1,4 +1,10 @@
-"""Public wrappers around the fused HSV ingest kernel.
+"""Public wrappers around the HSV kernels.
+
+``frame_pf`` / ``batch_pf`` are the staged entry point for callers that
+bring their own background model: RGB frames plus a precomputed
+foreground mask go through the histogram kernel (``kernel.hsv_hist_batch``,
+one call for a whole batch) and come back as PF matrices and hue
+fractions.
 
 ``ingest_pipeline`` is the camera-side hot path: a ``(T, H, W, 3)`` RGB
 frame batch — or a whole camera array ``(C, T, H, W, 3)`` — goes through
@@ -7,8 +13,9 @@ the fused ingest once and comes back as PF matrices, hue fractions and
 background-subtraction state ``IngestState`` carried explicitly across
 calls (chunked streaming scores identically to one long batch).
 
-Every call goes through ``kernel.ingest_batch``, which launches the CUDA
-kernel for a CUDA tensor and runs the plain PyTorch version for a CPU one.
+Every call goes through ``kernel.hsv_hist_batch`` or
+``kernel.ingest_batch``, which launch the CUDA kernel for a CUDA tensor
+and run the plain PyTorch version for a CPU one.
 """
 from __future__ import annotations
 
@@ -21,8 +28,54 @@ import torch
 from repro_torch.core.colors import Color
 from repro_torch.core.utility import B_S, B_V, UtilityModel
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.hsv_features.kernel import ingest_batch
+from repro_torch.kernels.hsv_features.kernel import (
+    hsv_hist_batch,
+    ingest_batch,
+)
 from repro_torch.kernels.hsv_features.ref import pf_from_counts
+
+
+def _as_tensor(x, device: DeviceLike) -> torch.Tensor:
+    """A tensor is used where it lies; a numpy array is moved to
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def batch_pf(rgb, fg, colors: Sequence[Color], bs: int = B_S, bv: int = B_V,
+             device: DeviceLike = None):
+    """(T, H, W, 3) RGB + (T, H, W) foreground -> (pf (T, nc, bs, bv),
+    hf (T, nc)) through ONE histogram kernel call for all T frames.
+
+    fg is a bool mask (the documented type; counted exactly) or float
+    weights. A numpy input is moved to ``device``, a tensor is used where
+    it lies."""
+    rgb = _as_tensor(rgb, device).to(torch.float32)
+    fg = _as_tensor(fg, rgb.device)
+    if fg.dtype != torch.bool:
+        fg = fg.to(torch.float32)
+    if fg.device != rgb.device:
+        raise ValueError(f"fg on {fg.device}, rgb on {rgb.device}")
+    T = rgb.shape[0]
+    n = rgb.shape[1] * rgb.shape[2]
+    hue_ranges = tuple(tuple(c.hue_ranges) for c in colors)
+    counts, totals, fgtot = hsv_hist_batch(
+        rgb.reshape(T, n, 3).contiguous(), fg.reshape(T, n).contiguous(),
+        hue_ranges, bs, bv)
+    pf = pf_from_counts(counts, totals, bs, bv)
+    hf = totals / torch.clamp_min(fgtot, 1.0)[:, None]
+    return pf, hf
+
+
+def frame_pf(rgb, fg, colors: Sequence[Color], bs: int = B_S, bv: int = B_V,
+             device: DeviceLike = None):
+    """One frame -> (pf (nc, bs, bv), hue_fraction (nc,)).
+
+    rgb: (H, W, 3) float32 (0..255); fg: (H, W) bool (or float weights).
+    """
+    pf, hf = batch_pf(rgb[None], fg[None], colors, bs, bv, device=device)
+    return pf[0], hf[0]
 
 
 @dataclass(frozen=True)
@@ -135,5 +188,5 @@ def ingest_pipeline(rgb, colors: Sequence[Color],
     return out
 
 
-__all__ = ["ingest_pipeline", "ingest_core", "query_constants",
+__all__ = ["frame_pf", "batch_pf", "ingest_pipeline", "ingest_core", "query_constants",
            "IngestState"]

@@ -1,4 +1,9 @@
-"""Plain PyTorch version of the fused HSV ingest kernel.
+"""Plain PyTorch versions of the HSV kernels.
+
+``hsv_hist_ref`` computes what the CUDA kernel ``kernel.hsv_hist`` /
+``kernel.hsv_hist_batch`` computes: RGB->HSV, per-color hue masks times a
+precomputed foreground weight, and a scatter-add over the joint
+(sat, val) bin index.
 
 ``ingest_batch_ref`` computes what the CUDA kernel
 ``kernel.ingest_batch`` computes, op for op in float32: RGB->HSV, EMA
@@ -8,8 +13,8 @@ state), per-color PF histograms, the utility score and, with
 ``width > 0``, the per-frame foreground bounding box. A ``(C, T, N, 3)``
 camera array carries one ``(bg, gain)`` lane per camera.
 
-It is the CPU path of the port and the version the kernel is held to on
-the card. Pass ``(bg, gain)`` from one batch to the next and a chunked
+They are the CPU path of the port and the versions the kernels are held
+to on the card. Pass ``(bg, gain)`` from one batch to the next and a chunked
 stream scores identically to one long batch.
 """
 from __future__ import annotations
@@ -30,6 +35,24 @@ def color_masks(h: torch.Tensor, hue_ranges) -> torch.Tensor:
             m |= (h >= lo) & (h < hi)
         ms.append(m)
     return torch.stack(ms)
+
+
+def hsv_hist_ref(rgb, fg, hue_ranges, bs: int = B_S, bv: int = B_V):
+    """rgb: (N, 3) float32 in [0, 255]; fg: (N,) bool mask or float
+    weights — or a batch, (T, N, 3) and (T, N). hue_ranges: one tuple of
+    (lo, hi) per color.
+
+    Returns (counts (nc, bs*bv), totals (nc,), fg_total ()) float32, each
+    with a leading frame axis for a batch.
+    """
+    hsv = rgb_to_hsv(rgb)
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    fgf = fg.to(torch.float32)
+    joint = joint_bin_index(s, v, bs, bv)
+    weights = color_masks(h, hue_ranges).to(torch.float32) * fgf[None]
+    counts = masked_hist(joint, weights, bs * bv)      # (..., nc, nb)
+    totals = torch.movedim(weights.sum(dim=-1), 0, -1)
+    return counts, totals, fgf.sum(dim=-1)
 
 
 def pf_from_counts(counts, totals, bs: int = B_S, bv: int = B_V):
@@ -67,9 +90,9 @@ def ema_background_scan(v_frames, bg0, gain0, *, alpha=0.05, threshold=18.0,
 def masked_hist(joint, weights, nb: int):
     """Per-(row, color) histograms by scatter-add.
 
-    joint: (..., N) bin indices; weights: (nc, ..., N) BINARY masks
-    (hue mask x foreground mask). Returns counts (..., nc, nb) float32:
-    sums of 0/1 below 2**24 are exact in any order.
+    joint: (..., N) bin indices; weights: (nc, ..., N) hue mask x
+    foreground weight. Returns counts (..., nc, nb) float32: sums of 0/1
+    below 2**24 are exact in any order.
     """
     idx = joint.to(torch.int64).unsqueeze(0).expand(weights.shape)
     counts = torch.zeros((*weights.shape[:-1], nb), dtype=torch.float32,
@@ -150,5 +173,5 @@ def ingest_batch_ref(rgb, bg0, gain0, M_pos, norm, hue_ranges,
     return tuple(o[0] for o in out)
 
 
-__all__ = ["color_masks", "pf_from_counts", "ema_background_scan",
+__all__ = ["color_masks", "hsv_hist_ref", "pf_from_counts", "ema_background_scan",
            "masked_hist", "foreground_bbox", "ingest_batch_ref"]

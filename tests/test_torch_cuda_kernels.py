@@ -1,7 +1,12 @@
-"""The CUDA ``ingest_batch`` kernel vs its plain PyTorch version on the
-card (``pytest -m cuda``), and the torch control plane on the card vs its
-NumPy host twins and a CPU session. Each test skips itself when no card
-is present, so every worker collects the same tests.
+"""The CUDA ``ingest_batch`` and ``hsv_hist`` kernels vs their plain
+PyTorch versions on the card (``pytest -m cuda``), and the torch control
+plane on the card vs its NumPy host twins and a CPU session. Each test
+skips itself when no card is present, so every worker collects the same
+tests.
+
+``hsv_hist`` (``kernel.compare_hist_with_plain``): exact with a bool
+mask (int32 counters) and with 0/1 float weights; fractional float
+weights within ``kernel.HIST_FLOAT_RTOL`` times the frame's weight sum.
 
 Tolerance (``kernel.compare_with_plain``): bg and gain at atol 1e-4 /
 rtol 1e-5; utility at that tolerance in every frame, widened only by what
@@ -104,6 +109,83 @@ def test_kernel_rejects_bad_inputs():
         kernel.ingest_batch(rgb, bg0[:, :10], gain0, M, norm, HR[:1])
     with pytest.raises(ValueError):
         kernel.ingest_batch(rgb, bg0, gain0, M, norm, HR[:1] * 5)
+
+
+def _hist(dev, T, n, nc, weights, seed=0, bs=8, bv=8):
+    rng = np.random.default_rng(seed)
+    rgb = torch.as_tensor(rng.uniform(0, 255, (T, n, 3)).astype(np.float32),
+                          device=dev)
+    if weights == "bool":
+        fg = torch.as_tensor(rng.random((T, n)) < 0.6, device=dev)
+    elif weights == "binary":
+        fg = torch.as_tensor((rng.random((T, n)) < 0.6).astype(np.float32),
+                             device=dev)
+    else:
+        fg = torch.as_tensor(rng.random((T, n)).astype(np.float32),
+                             device=dev)
+    before = kernel.hsv_hist_batch.launches
+    got = kernel.hsv_hist_batch(rgb, fg, HR[:nc], bs, bv)
+    torch.cuda.synchronize()
+    assert kernel.hsv_hist_batch.launches == before + 1
+    want = ref.hsv_hist_ref(rgb, fg, HR[:nc], bs, bv)
+    rep = kernel.compare_hist_with_plain(got, want, fg)
+    if weights != "fractional":
+        assert rep["count_units_differing"] == 0
+    return rep
+
+
+@pytest.mark.parametrize("weights", ["bool", "binary", "fractional"])
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [17, 4096, 4097, 3 * 4096 + 100])
+def test_hist_ragged_colors_and_weights(weights, nc, n):
+    """Pixel counts under, on and past the 4096-pixel tile, every
+    supported color count, bool masks and float weights."""
+    dev = _card()
+    _hist(dev, 3, n, nc, weights, seed=n + nc)
+
+
+@pytest.mark.parametrize("bs,bv", [(4, 4), (16, 16)])
+def test_hist_bin_sizes(bs, bv):
+    dev = _card()
+    _hist(dev, 2, 5000, 1, "bool", bs=bs, bv=bv)
+
+
+@pytest.mark.parametrize("weights", ["bool", "fractional"])
+def test_hist_full_width(weights):
+    """The hist phase's shape: 64 frames of 720x1280, two colors."""
+    dev = _card()
+    _hist(dev, 64, 720 * 1280, 2, weights, seed=3)
+
+
+def test_hist_single_frame_and_deterministic_float_sums():
+    dev = _card()
+    rng = np.random.default_rng(4)
+    rgb = torch.as_tensor(rng.uniform(0, 255, (9000, 3)).astype(np.float32),
+                          device=dev)
+    w = torch.as_tensor(rng.random(9000).astype(np.float32), device=dev)
+    one = kernel.hsv_hist(rgb, w, HR[:2])
+    again = kernel.hsv_hist(rgb, w, HR[:2])
+    assert [tuple(o.shape) for o in one] == [(2, 64), (2,), ()]
+    for a, b in zip(one, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_hist_rejects_bad_inputs():
+    dev = _card()
+    rgb = torch.zeros((2, 300, 3), device=dev)
+    fg = torch.ones((2, 300), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        kernel.hsv_hist_batch(rgb.double(), fg, HR[:1])
+    with pytest.raises(ValueError):
+        kernel.hsv_hist_batch(rgb, fg[:, :10], HR[:1])
+    with pytest.raises(ValueError):
+        kernel.hsv_hist_batch(rgb, fg.to(torch.int32), HR[:1])
+    with pytest.raises(ValueError):
+        kernel.hsv_hist_batch(rgb, fg, HR[:1] * 5)
+    with pytest.raises(ValueError):
+        kernel.hsv_hist_batch(rgb, fg, HR[:2], 16, 16)   # 512 counters
+    with pytest.raises(ValueError):
+        kernel.hsv_hist_batch(rgb, fg.cpu(), HR[:1])
 
 
 @pytest.mark.parametrize("subnormal", [False, True])

@@ -57,3 +57,32 @@ def test_open_session_without_device_raises_on_cpu_box():
         open_session(Query.single("red"), 2)
     s = open_session(Query.single("red"), 2, device="cpu")
     assert s.state.device.type == "cpu"
+
+
+def test_new_service_modules_are_in_the_checks():
+    mods = _port_modules()
+    for m in ("repro_torch.serve.service", "repro_torch.serve.transport",
+              "repro_torch.serve.fault", "repro_torch.serve.simulator",
+              "repro_torch.data.pipeline", "repro_torch.launch.serve"):
+        assert m in mods
+
+
+def test_kernel_libraries_are_keyed_on_every_compiled_file(tmp_path,
+                                                           monkeypatch):
+    """An edited shared header changes both libraries' keys, an edited
+    source only its own: a stale library is never reused."""
+    import shutil
+    from repro_torch.kernels.hsv_features import kernel
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernel.CSRC, csrc)
+    monkeypatch.setattr(kernel, "CSRC", csrc)
+    before = {n: kernel.library_path(n) for n in kernel.LIBRARIES}
+    assert len(set(before.values())) == len(kernel.LIBRARIES)
+    (csrc / "hsv_common.cuh").write_text(
+        (csrc / "hsv_common.cuh").read_text() + "\n// edited\n")
+    after_header = {n: kernel.library_path(n) for n in kernel.LIBRARIES}
+    assert all(after_header[n] != before[n] for n in kernel.LIBRARIES)
+    (csrc / "hist.cu").write_text((csrc / "hist.cu").read_text() + "\n")
+    after_hist = {n: kernel.library_path(n) for n in kernel.LIBRARIES}
+    assert after_hist["hist"] != after_header["hist"]
+    assert after_hist["ingest"] == after_header["ingest"]
