@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path once on one CUDA card.
+"""Drive the PyTorch port's serve path, its LM backend and its kernels
+once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,9 @@ Phases, each printing one JSON line:
 
 1. device — the card's name and count, and ``nvidia-smi``'s name and
    power limit (also printed raw on a line of its own);
-2. build — builds the CUDA kernels (``ingest.cu``, ``hist.cu``) from
-   ``src/`` with nvcc, one process per source, started together;
+2. build — builds the CUDA kernels (``ingest.cu``, ``hist.cu``,
+   ``flash.cu``) from ``src/`` with nvcc (``repro_torch.kernels.build``),
+   one process per library, started together;
 3. kernel — the CUDA ``ingest_batch`` against its plain PyTorch version
    on the card at the serve shape (8 cameras x 8 frames of 720x1280, two
    colors): bg_valid=True, and bg_valid=False with the bounding box;
@@ -35,7 +37,27 @@ Phases, each printing one JSON line:
    no frames, served through ``offer_batch`` by a ``device="cpu"``
    session started from the same state, must keep the same frames on the
    same timeline with the same counters;
-8. the ``kernels`` line, then the final ``{"ok": true, ...}`` line.
+8. lm — smollm-135m at full width (30 layers, d 576, 9/3 heads, vocab
+   49152; weights from a seeded generator): the card's float32
+   ``lm_forward`` at B=1, S=128 against the same forward on the CPU: at
+   the first ``LM_CUT_LAYERS`` layers within 1e-4, and at full depth both
+   held to the CPU's float64 forward (the card must be as close to it as
+   the CPU's float32 is, within ``LM_F32_SLACK``); the
+   bf16 forward timed at the backend's shape (1 x 64) and at 4 x 2048
+   with its peak memory, then ``python -m repro_torch.launch.serve
+   --real-backend`` (``main``) on the card: the service with
+   ``make_lm_backend()`` as its backend must admit and send frames;
+9. flash — the CUDA ``flash_attention`` through its entry points, with
+   the launch counter at 0, on (a) layer 0's q, k, v of that full-width
+   smollm at 4 x 2048 (projected and roped as ``attend_full`` does,
+   through ``flash_attention_bsnh``), (b) gemma3-12b's local-layer widths
+   (1 x 4096, 16/8 heads of 256, window 1024), (c) 512 queries at the
+   tail of 2048 keys and a padded S=2000, each in float32 and bf16, and
+   (a) in float32 with q scaled by 1/8; then each held to
+   ``attention_ref`` at 2e-6 / 2e-2 (case (a) in float32 to the float64
+   answer, see ``FLASH_F64_HELD``) and timed (kernel, plain version, and
+   ``scaled_dot_product_attention`` as a yardstick) beside its bound;
+10. the ``kernels`` line, then the final ``{"ok": true, ...}`` line.
 
 Frames are seeded synthetic traffic scenes (``data/synthetic.py``) at
 90x160, upsampled x8 by nearest neighbour to 720x1280. Any failure raises
@@ -60,6 +82,33 @@ SVC_FPS, SVC_BOUND = 30.0, 0.5               # query, fps and coalescer
 SVC_MAX_BATCH, SVC_MAX_WAIT = 8, 0.05
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12                       # float32 outside tensor cores
+BF16_OPS_PER_S = 989e12                     # bf16 tensor cores, dense
+LM_ARCH = "smollm-135m"
+LM_CHECK_SHAPE, LM_SHAPES = (1, 128), ((1, 64), (4, 2048))
+# The full-width forward on random weights amplifies rounding ~1.7x a
+# layer (measured on the CPU against float64 at depths 2, 5 and 10), so
+# after 30 layers two float32 runs differ by ~1e-2. The card must be as
+# close to the float64 logits as the CPU's float32 forward is, within
+# this factor.
+LM_F32_SLACK = 4.0
+# Where rounding has not grown yet (the same weights, the first 2
+# layers: float32 is ~2e-5 from float64 there on the CPU), the card's
+# float32 logits must match the CPU's at 1e-4 (atol and rtol, the CPU
+# tests' float32 tolerance against the reference).
+LM_CUT_LAYERS, LM_CUT_TOL = 2, 1e-4
+LM_SVC_ARGS = ["--real-backend", "--cams", "4", "--frames", "60"]
+FLASH_A = (4, 2048)             # smollm layer 0: batch, sequence
+FLASH_B = (1, 4096)             # gemma3-12b local layer: batch, sequence
+FLASH_C_TAIL = (2, 512, 2048)   # batch, queries at the tail, keys
+FLASH_C_PAD = (2, 2000)         # batch, sequence (pads to 2048)
+# Layer 0 of the random full-width smollm gives scores of std ~9, where
+# float32 rounding alone moves outputs by more than 2e-6: case (a) in
+# float32, and only it, is held to the float64 answer instead (no farther
+# than this factor times the plain version). The same q, scaled by 1/8
+# (exact in float32) to scores of std ~1, is held to 2e-6 as every other
+# case is.
+FLASH_F64_HELD = {("a_smollm_layer0", "float32")}
+FLASH_F32_SLACK = 2.0
 
 
 def emit(obj) -> None:
@@ -79,18 +128,21 @@ def scenes(seed: int, n_frames: int):
     return rgb, labels
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, runs: int = 7, warmup: int = 2) -> float:
+    """Median over ``runs`` of one call timed by CUDA events."""
     import torch
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 class Upsampled:
@@ -148,10 +200,13 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.convert import state_from_numpy
     from repro_torch.core import Query, open_session
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.hsv_features import kernel, ref
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -161,11 +216,11 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    kernel.build()
-    ptxas = [ln.strip() for ln in kernel.BUILD.log.splitlines()
+    kbuild.build()
+    ptxas = [ln.strip() for ln in kbuild.BUILD.log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "seconds": round(kernel.BUILD.seconds, 3),
-          "libraries": sorted(kernel.BUILD.libs), "ptxas": ptxas})
+    emit({"phase": "build", "seconds": round(kbuild.BUILD.seconds, 3),
+          "libraries": sorted(kbuild.BUILD.libs), "ptxas": ptxas})
 
     # -- inputs: seeded scenes, upsampled on the card ------------------------
     rgb_small, labels = scenes(1000, TRAIN + STEPS * T)
@@ -201,9 +256,9 @@ def main() -> int:
         want = ref.ingest_batch_ref(*args, **kw)
         rep = kernel.compare_with_plain(got, want, M, norm)
         del got, want
-        ms = cuda_ms(lambda: kernel.ingest_batch(*args, **kw), iters=20)
+        ms = cuda_ms(lambda: kernel.ingest_batch(*args, **kw), runs=20)
         plain_ms = cuda_ms(lambda: ref.ingest_batch_ref(*args, **kw),
-                           iters=3, warmup=1)
+                           runs=3, warmup=1)
         nbytes = kernel.bytes_moved(C, T, N, nc, nb, kw["bg_valid"],
                                     kw["width"])
         ops = kernel.OPS_PER_PIXEL * C * T * N
@@ -321,6 +376,9 @@ def main() -> int:
     del sess, replay
     hist = hist_phase(dev, frames, hr, nc, nb, N, kernel, ref)
     service_phase(dev, kernel, state_from_numpy)
+    params = lm_phase(dev)
+    flash = flash_phase(dev, params)
+    del params
 
     main = results["bg_valid"]
     emit({"kernels": [{
@@ -337,7 +395,14 @@ def main() -> int:
         "launches": hist["launches"], "max_abs_err": hist["max_abs_err"],
         "ms": hist["ms"], "plain_ms": hist["plain_ms"],
         "bound_ms": hist["bound_ms"], "bound_by": hist["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:113",
+        "launches": flash["launches"], "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -377,8 +442,8 @@ def hist_phase(dev, frames, hr, nc, nb, N, kernel, ref) -> dict:
             raise AssertionError(f"hsv_hist ({label}): "
                                  f"{rep['count_units_differing']} count "
                                  "units differ from the plain version")
-        ms = cuda_ms(lambda: kernel.hsv_hist_batch(rgb, w, hr), iters=20)
-        plain_ms = cuda_ms(lambda: ref.hsv_hist_ref(rgb, w, hr), iters=3,
+        ms = cuda_ms(lambda: kernel.hsv_hist_batch(rgb, w, hr), runs=20)
+        plain_ms = cuda_ms(lambda: ref.hsv_hist_ref(rgb, w, hr), runs=3,
                            warmup=1)
         nbytes = kernel.hist_bytes_moved(F, N, nc, nb, w.element_size())
         ops = kernel.HIST_OPS_PER_PIXEL * F * N
@@ -516,6 +581,295 @@ def service_phase(dev, kernel, state_from_numpy) -> None:
           "e2e_virtual_p50_s": float(np.percentile(lat, 50)),
           "e2e_virtual_p99_s": float(np.percentile(lat, 99)),
           "cpu_offer_batch_replay_equal": True})
+
+
+def lm_phase(dev):
+    """smollm-135m at full width on the card: float32 logits against the
+    CPU's, bf16 forwards timed, and the launcher's LM backend serving.
+    Returns the float32 weights on the card (for the flash phase)."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm_forward, lm_specs, padded_vocab
+    from repro_torch.sharding.api import materialize, num_params, tree_map
+
+    cfg = get_config(LM_ARCH)
+    specs = lm_specs(cfg)
+    t0 = time.perf_counter()
+    cpu_params = materialize(specs, torch.Generator().manual_seed(0), "cpu")
+    params = tree_map(lambda t: t.to(dev), cpu_params,
+                      is_leaf=torch.is_tensor)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+
+    def tokens(B, S, device):
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               device=device)
+
+    f32 = scaled(cfg, dtype="float32")
+    cut = scaled(f32, num_layers=LM_CUT_LAYERS)
+    toks = tokens(*LM_CHECK_SHAPE, "cpu")
+    with torch.inference_mode():
+        exact = lm_forward(scaled(cfg, dtype="float64"), cpu_params,
+                           {"tokens": toks})[0]
+        want = lm_forward(f32, cpu_params, {"tokens": toks})[0]
+        got = lm_forward(f32, params, {"tokens": toks.to(dev)})[0].cpu()
+        cut_want = lm_forward(cut, cpu_params, {"tokens": toks})[0]
+        cut_got = lm_forward(cut, params, {"tokens": toks.to(dev)})[0].cpu()
+    del cpu_params
+    real = slice(0, cfg.vocab_size)
+    if not (got.shape == want.shape == (*LM_CHECK_SHAPE, padded_vocab(cfg))
+            and torch.isfinite(got[..., real]).all()):
+        raise AssertionError(f"lm: bad logits {tuple(got.shape)}")
+
+    def errs(a, b):
+        """Max abs difference, and it relative to b's largest logit."""
+        d = float((a[..., real].double() - b[..., real].double()).abs().max())
+        return d, d / float(b[..., real].abs().max())
+
+    cut_vs_cpu = errs(cut_got, cut_want)
+    if not torch.allclose(cut_got[..., real], cut_want[..., real],
+                          atol=LM_CUT_TOL, rtol=LM_CUT_TOL):
+        raise AssertionError(
+            f"lm: card float32 logits after {LM_CUT_LAYERS} layers differ "
+            f"from the CPU's by {cut_vs_cpu[0]}, past {LM_CUT_TOL}")
+    card_vs_cpu = errs(got, want)
+    card_vs_f64, cpu_vs_f64 = errs(got, exact), errs(want, exact)
+    if not card_vs_f64[0] <= LM_F32_SLACK * cpu_vs_f64[0] + 1e-6:
+        raise AssertionError(
+            f"lm: card float32 logits {card_vs_f64[0]} from float64, more "
+            f"than {LM_F32_SLACK} x the CPU float32's {cpu_vs_f64[0]}")
+    timed = {}
+    for B, S in LM_SHAPES:
+        toks = tokens(B, S, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: lm_forward(cfg, params,
+                                              {"tokens": toks}), runs=5)
+            logits = lm_forward(cfg, params, {"tokens": toks})[0]
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not (logits.dtype == torch.bfloat16
+                and torch.isfinite(logits[..., real]).all()):
+            raise AssertionError(f"lm: bad bf16 logits at {B}x{S}")
+        del logits
+        timed[f"{B}x{S}"] = {"ms": ms, "peak_bytes": int(peak),
+                             "peak_above_weights_bytes": int(peak - base)}
+    # where a backend-shaped forward's time goes: one profiled forward
+    from torch.profiler import ProfilerActivity, profile
+    toks = tokens(*LM_SHAPES[0], dev)
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm_forward(cfg, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev_rows, cpu_rows = [], []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_rows.append((us, e.key, e.count))
+        elif e.device_type == torch.autograd.DeviceType.CPU:
+            cpu_rows.append((e.self_cpu_time_total, e.key, e.count))
+    dev_us = sum(r[0] for r in dev_rows)
+    profiled = {
+        "shape": list(LM_SHAPES[0]), "wall_ms": prof_wall * 1e3,
+        "device_ms": dev_us / 1e3,
+        "device_busy_share": dev_us / 1e6 / prof_wall,
+        "device_kernels": sum(r[2] for r in dev_rows),
+        "top_cpu_self_ms": [[k[:60], us / 1e3, n] for us, k, n in
+                            sorted(cpu_rows, reverse=True)[:10]],
+        "top_device_ms": [[k[:60], us / 1e3, n] for us, k, n in
+                          sorted(dev_rows, reverse=True)[:6]]}
+    emit({"phase": "lm", "arch": LM_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                            cfg.num_kv_heads],
+          "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+          "params": num_params(specs), "init_s": init_s,
+          "f32_check_shape": list(LM_CHECK_SHAPE),
+          "f32_cut_layers": LM_CUT_LAYERS, "f32_cut_tol": LM_CUT_TOL,
+          "f32_cut_card_vs_cpu_max_abs_rel": cut_vs_cpu,
+          "f32_card_vs_cpu_max_abs_rel": card_vs_cpu,
+          "f32_card_vs_cpu_f64_max_abs_rel": card_vs_f64,
+          "f32_cpu_vs_cpu_f64_max_abs_rel": cpu_vs_f64,
+          "slack": LM_F32_SLACK,
+          "max_abs_logit": float(exact[..., real].abs().max()),
+          "bf16_forward": timed, "profiled_forward": profiled})
+
+    out = ROOT / "results" / "serve" / "lm_metrics.json"
+    t0 = time.perf_counter()
+    res = launch.main(LM_SVC_ARGS + ["--metrics-out", str(out)])
+    wall = time.perf_counter() - t0
+    cnt = res.metrics["counters"]
+    if cnt.get("sender.sent", 0) < 1 or cnt.get("backend.done", 0) < 1:
+        raise AssertionError(f"lm service: nothing sent ({cnt})")
+    if cnt["ingest.offered"] - cnt.get("shed.admission", 0) < 1:
+        raise AssertionError("lm service: nothing admitted")
+    emit({"phase": "lm_service", "argv": LM_SVC_ARGS, "run_wall_s": wall,
+          "counters": {k: v for k, v in cnt.items()
+                       if k.split(".")[0] in ("dispatch", "sender",
+                                              "backend", "shed", "ingest")},
+          "backend_latency_s": res.metrics["histograms"][
+              "backend.latency_s"],
+          "shed_rate": res.metrics["derived"]["shed_rate"],
+          "violations": res.violations})
+    return params
+
+
+def flash_phase(dev, params) -> dict:
+    """The CUDA flash attention kernel through its entry points against
+    ``attention_ref`` on the card, with kernel, plain and SDPA times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bsnh
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import _project_kv, _project_q
+    from repro_torch.models.common import apply_rope, rmsnorm
+    from repro_torch.models.lm import embed_tokens
+
+    cfg = get_config(LM_ARCH)
+    B, S = FLASH_A
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, S)), device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    layer0 = {k: v[0] for k, v in params["blocks"][0]["attn"].items()}
+    norm1 = params["blocks"][0]["norm1"][0]
+    cases = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg_d = scaled(cfg, dtype=str(dtype).replace("torch.", ""))
+            x = embed_tokens(cfg_d, params, toks, pos)
+            h = rmsnorm(x, norm1, cfg.norm_eps)
+            q = apply_rope(_project_q(layer0, h), pos, cfg.rope_theta)
+            k, v = _project_kv(layer0, h)
+            k = apply_rope(k, pos, cfg.rope_theta)
+            cases[("a_smollm_layer0", dtype)] = dict(
+                bsnh=(q, k, v), causal=True, window=None)
+            if dtype == torch.float32:
+                cases[("a_smollm_layer0_q_over_8", dtype)] = dict(
+                    bsnh=(q * 0.125, k, v), causal=True, window=None)
+        g = get_config("gemma3-12b")
+        rng = np.random.default_rng(5)
+
+        def rand(shape, dtype):
+            return torch.as_tensor(rng.standard_normal(shape).astype(
+                np.float32), device=dev).to(dtype)
+
+        for dtype in (torch.float32, torch.bfloat16):
+            hd, (gb, gs) = g.resolved_head_dim, FLASH_B
+            cases[("b_gemma3_local", dtype)] = dict(
+                bhsd=(rand((gb, g.num_heads, gs, hd), dtype),
+                      rand((gb, g.num_kv_heads, gs, hd), dtype),
+                      rand((gb, g.num_kv_heads, gs, hd), dtype)),
+                causal=True, window=g.sliding_window)
+            tb, tq, tk = FLASH_C_TAIL
+            cases[("c_tail", dtype)] = dict(
+                bhsd=(rand((tb, 9, tq, 64), dtype),
+                      rand((tb, 3, tk, 64), dtype),
+                      rand((tb, 3, tk, 64), dtype)),
+                causal=True, window=None)
+            pb, ps = FLASH_C_PAD
+            cases[("c_padded", dtype)] = dict(
+                bsnh=(rand((pb, ps, 9, 64), dtype),
+                      rand((pb, ps, 3, 64), dtype),
+                      rand((pb, ps, 3, 64), dtype)),
+                causal=True, window=None)
+
+        def entry(c):
+            kw = dict(causal=c["causal"], window=c["window"])
+            if "bsnh" in c:
+                return lambda: flash_attention_bsnh(*c["bsnh"], **kw)
+            q, k, v = c["bhsd"]
+            bq = min(fk.DEFAULT_BLOCK_Q, q.shape[2])
+            bk = min(fk.DEFAULT_BLOCK_K, k.shape[2])
+            return lambda: fk.flash_attention(q, k, v, block_q=bq,
+                                              block_k=bk, **kw)
+
+        def bhsd(c):
+            if "bhsd" in c:
+                return c["bhsd"]
+            return tuple(t.transpose(1, 2) for t in c["bsnh"])
+
+        # the entry points' run: every case once, counter from 0
+        torch.cuda.synchronize()
+        fk.flash_attention.launches = 0
+        outs = {key: entry(c)() for key, c in cases.items()}
+        torch.cuda.synchronize()
+        launches = fk.flash_attention.launches
+        if launches != len(cases):
+            raise AssertionError(f"flash: {launches} launches for "
+                                 f"{len(cases)} entry-point calls")
+
+        report = {}
+        for key, c in cases.items():
+            name, dtype = key
+            q, k, v = bhsd(c)
+            out = outs.pop(key)
+            if "bsnh" in c:
+                out = out.transpose(1, 2)
+            kw = dict(causal=c["causal"], window=c["window"])
+            want = attention_ref(q, k, v, **kw)
+            exact = attention_ref(q.double(), k.double(), v.double(), **kw)
+            tol = fk.TOL[dtype]
+            err = float((out.float() - want.float()).abs().max())
+            err64 = float((out.double() - exact).abs().max())
+            plain64 = float((want.double() - exact).abs().max())
+            dname = str(dtype).replace("torch.", "")
+            if (name, dname) in FLASH_F64_HELD:
+                held = "float64"
+                ok = err64 <= FLASH_F32_SLACK * plain64
+            else:
+                held = "attention_ref"
+                ok = torch.allclose(out.float(), want.float(), atol=tol,
+                                    rtol=tol)
+            if not (out.shape == want.shape and out.dtype == dtype
+                    and torch.isfinite(out).all() and ok):
+                raise AssertionError(
+                    f"flash {name} {dtype}: max abs error {err} past {tol} "
+                    f"(float64: kernel {err64}, plain {plain64})")
+            del want, exact
+            Bq, Hq, Sq, d = q.shape
+            Hkv, Sk = k.shape[1], k.shape[2]
+            run = entry(c)
+            ms = cuda_ms(run)
+            plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw),
+                                 runs=3, warmup=1)
+            if c["window"] is None and Sq == Sk:
+                mask, causal = None, True
+            else:
+                qp = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+                kp = torch.arange(Sk, device=dev)[None, :]
+                mask = kp <= qp
+                if c["window"] is not None:
+                    mask &= (qp - kp) < c["window"]
+                causal = False
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True))
+            ops = fk.attention_ops(Bq, Hq, Sq, Sk, d, **kw)
+            nbytes = fk.attention_bytes(Bq, Hq, Hkv, Sq, Sk, d,
+                                        q.element_size())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            peak = F32_OPS_PER_S if dtype == torch.float32 \
+                else BF16_OPS_PER_S
+            ops_ms = ops / peak * 1e3
+            rep = dict(
+                shape={"B": Bq, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
+                       "d": d, "window": c["window"]},
+                dtype=dname, max_abs_err=err,
+                tol=tol, held_to=held, kernel_vs_f64=err64,
+                plain_vs_f64=plain64, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                f32_cuda_core_bound_ms=ops / F32_OPS_PER_S * 1e3,
+                bf16_tensor_core_bound_ms=ops / BF16_OPS_PER_S * 1e3,
+                ops=ops, bytes=nbytes, achieved_tflops=ops / ms / 1e9)
+            report[f"{name}_{rep['dtype']}"] = rep
+            emit({"phase": "flash", "case": name, **rep})
+    main = report["a_smollm_layer0_bfloat16"]
+    return dict(main, launches=launches)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
-"""Carry a trained model and a session state over from NumPy arrays.
+"""Carry a trained model, a session state and model weights over from
+NumPy arrays.
 
 The reference package exposes its utility model as arrays
-(``UtilityModel.M_pos``/``M_neg``/``norm``/``op``) and its session state
-as ``SessionState.as_dict()`` — ``{leaf name: np.ndarray}``. These two
-functions build the port's objects from exactly those arrays, so a
-reference session and a port session can start from the same trained
-model and the same state. They take NumPy only.
+(``UtilityModel.M_pos``/``M_neg``/``norm``/``op``), its session state
+as ``SessionState.as_dict()`` — ``{leaf name: np.ndarray}`` — and its
+language model's parameters as a pytree of arrays. These functions build
+the port's objects from exactly those arrays, so a reference and a port
+object can start from the same trained model, state or weights. They
+take NumPy only.
 """
 from __future__ import annotations
 
@@ -62,4 +64,17 @@ def state_from_numpy(d: Dict[str, np.ndarray],
     return SessionState(**leaves)
 
 
-__all__ = ["model_from_numpy", "state_from_numpy"]
+def lm_params_from_numpy(tree, device: DeviceLike = None):
+    """The port's language-model parameters from the reference's
+    parameter pytree with NumPy leaves (``embed``, ``final_norm``, the
+    ``blocks`` tuple of dicts stacked over the pattern repetitions, an
+    optional ``lm_head``), nesting and dtypes kept, on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(lm_params_from_numpy(v, dev) for v in tree)
+    return torch.as_tensor(np.array(tree), device=dev)
+
+
+__all__ = ["lm_params_from_numpy", "model_from_numpy", "state_from_numpy"]

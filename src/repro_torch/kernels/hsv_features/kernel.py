@@ -7,8 +7,8 @@ signature and return tuple (``interpret=`` dropped); ``hsv_hist`` (and
 its batched form ``hsv_hist_batch``) replaces ``kernel.py::hsv_hist``.
 For a CUDA tensor each launches its kernel from ``csrc/`` (CUDA C++ for
 ``sm_90a``, ``ingest.cu`` and ``hist.cu`` sharing the per-pixel helpers
-of ``hsv_common.cuh``, each built with ``nvcc`` at first use into
-``build/`` at the repository root and loaded with ``ctypes``) or raises;
+of ``hsv_common.cuh``, each built by ``repro_torch.kernels.build`` at
+first use and loaded with ``ctypes``) or raises;
 for a CPU tensor, and only then, it runs the plain PyTorch version from
 ``ref.py``. See the notes at the top of the CUDA sources for what bounds
 each kernel and how its design answers that.
@@ -21,29 +21,16 @@ weights; all on the current stream).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict
 
 import torch
 
 from repro_torch.core.utility import B_S, B_V
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.hsv_features.ref import (
     hsv_hist_ref,
     ingest_batch_ref,
 )
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-# one shared library per source; each also compiles the shared header
-LIBRARIES = {"ingest": "ingest.cu", "hist": "hist.cu"}
-HEADERS = ("hsv_common.cuh",)
 MAX_COLORS = 4
 MAX_RANGES = 2
 MAX_COUNTERS = 256
@@ -80,74 +67,18 @@ class _HistParams(ctypes.Structure):
     ]
 
 
-class BUILD:
-    """The loaded libraries, built once per process at first use."""
-    libs: Dict[str, ctypes.CDLL] = {}
-    seconds: float = 0.0
-    log: str = ""
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build the CUDA kernels")
-    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
-    if not nvcc.exists():
-        raise RuntimeError(f"nvcc not found at {nvcc}")
-    return str(nvcc)
-
-
-def library_path(name: str) -> Path:
-    """Where library ``name`` is built: keyed by a hash of every file it
-    compiles (its source and the shared headers) and the flags, so an
-    edited header never reuses a stale library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (LIBRARIES[name], *HEADERS):
-        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes())
-    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Dict[str, ctypes.CDLL]:
-    """Build (if needed) and load every kernel library: one ``nvcc`` per
-    source, all started together. Each ``.so`` is written under a
-    temporary name and moved into place, so concurrent builds never see a
-    partial file."""
-    if BUILD.libs:
-        return BUILD.libs
-    t0 = time.perf_counter()
-    paths = {name: library_path(name) for name in LIBRARIES}
-    procs = {}
-    for name, so in paths.items():
-        if so.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".{so.stem}.{os.getpid()}.so"
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / LIBRARIES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = [], []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs.append(f"== {LIBRARIES[name]}\n{out}")
-        if proc.returncode != 0:
-            failed.append(LIBRARIES[name])
-        else:
-            os.replace(tmp, paths[name])
-    BUILD.log = "\n".join(logs)
-    if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD.log}")
-    libs = {name: ctypes.CDLL(str(so)) for name, so in paths.items()}
-    fn = libs["ingest"].ingest_batch_launch
-    fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 17
+def _lib(name: str) -> ctypes.CDLL:
+    """The built library ``name`` ("ingest" or "hist") with its launch
+    function's argument types set."""
+    lib = kbuild.build()[name]
+    if name == "ingest":
+        fn = lib.ingest_batch_launch
+        fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 17
+    else:
+        fn = lib.hsv_hist_launch
+        fn.argtypes = [ctypes.POINTER(_HistParams)] + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
-    fn = libs["hist"].hsv_hist_launch
-    fn.argtypes = [ctypes.POINTER(_HistParams)] + [ctypes.c_void_p] * 8
-    fn.restype = ctypes.c_int
-    BUILD.seconds = time.perf_counter() - t0
-    BUILD.libs = libs
-    return libs
+    return lib
 
 
 def _hue_fields(p, hue_ranges) -> None:
@@ -242,7 +173,7 @@ def ingest_batch(rgb, bg0, gain0, M_pos, norm, hue_ranges,
     _check("norm", norm, (nc,))
     params = _params(C, T, N, hue_ranges, bs, bv, alpha, threshold, use_fg,
                      bg_valid, op, width)
-    lib = build()["ingest"]
+    lib = _lib("ingest")
 
     f32, i32 = torch.float32, torch.int32
     counts = torch.empty((C, T, nc, nb), dtype=f32, device=dev)
@@ -310,7 +241,7 @@ def hsv_hist_batch(rgb, fg, hue_ranges, bs: int = B_S, bv: int = B_V):
                     vscale=bv / 256.0, tile=TILE,
                     float_weights=int(float_weights))
     _hue_fields(p, hue_ranges)
-    lib = build()["hist"]
+    lib = _lib("hist")
 
     dev = rgb.device
     counts = torch.empty((T, nc, nb), dtype=torch.float32, device=dev)
@@ -503,7 +434,7 @@ HIST_OPS_PER_PIXEL = 20
 OPS_PER_PIXEL = 29
 
 
-__all__ = ["ingest_batch", "hsv_hist", "hsv_hist_batch", "build",
+__all__ = ["ingest_batch", "hsv_hist", "hsv_hist_batch",
            "bytes_moved", "hist_bytes_moved", "compare_with_plain",
            "compare_hist_with_plain", "OPS_PER_PIXEL", "HIST_OPS_PER_PIXEL",
            "TILE"]

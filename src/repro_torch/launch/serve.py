@@ -5,8 +5,10 @@ full service skin (``repro_torch.serve.service``): timed per-camera
 arrivals are coalesced into ``(C, T, H, W, 3)`` windows and scored +
 admitted in one fused step per flush (the CUDA ingest kernel on the
 card), admitted frames wait in the backpressured send queue, and a
-token-gated sender drives a seeded mock of the paper's filter/DNN
-backend. Every completion feeds the frame's *measured* latency into the
+token-gated sender drives the backend — a seeded mock of the paper's
+filter/DNN split by default, or a real language-model forward with
+``--real-backend`` (``make_lm_backend``, on the session's device). Every
+completion feeds the frame's *measured* latency into the
 Eq. 17–20 control loop, and per-stage metrics (ingest fps, shed rate,
 coalescer wait, queue depth, backend utilization, p50/p95/p99 E2E
 latency, deadline violations) are exported as JSON/CSV.
@@ -19,14 +21,18 @@ runs on the CUDA card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --cams 8 --frames 300
   PYTHONPATH=src python -m repro_torch.launch.serve --cams 2 --frames 40 \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --real-backend
 """
 from __future__ import annotations
 
 import argparse
+import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import RED, Query, open_session, overall_qor
 from repro_torch.data.pipeline import camera_array_records, scenario_records
 from repro_torch.data.synthetic import generate_dataset
@@ -37,6 +43,45 @@ from repro_torch.serve import (
     VirtualClock,
     WallClock,
 )
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import lm_forward, lm_specs
+from repro_torch.sharding.api import materialize
+
+
+def make_lm_backend(arch: str = "smollm-135m", seq: int = 64,
+                    pad: float = 0.0, device: DeviceLike = None):
+    """A real model forward as the expensive DNN stage.
+
+    The smoke config of ``arch`` with weights drawn from a seeded
+    generator, one warm-up forward, then an ``item -> measured latency
+    seconds`` callable (wrapped as a Backend by the service): the wall
+    time of one forward over ``seq`` tokens, ending in a device
+    synchronisation, for a busy frame (the forward is skipped otherwise),
+    plus ``pad``. Runs on the CUDA card unless ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    cfg = get_smoke_config(arch)
+    params = materialize(lm_specs(cfg), torch.Generator().manual_seed(0),
+                         device=dev)
+    toks = torch.zeros((1, seq), dtype=torch.int64, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    @torch.inference_mode()
+    def fwd():
+        lm_forward(cfg, params, {"tokens": toks})
+        sync()
+
+    fwd()                                                  # warm-up
+
+    def backend(frame) -> float:
+        t0 = time.perf_counter()
+        if getattr(frame, "busy", True):                   # DNN stage
+            fwd()
+        return time.perf_counter() - t0 + pad
+    return backend
 
 
 def main(argv=None):
@@ -54,10 +99,13 @@ def main(argv=None):
                     help="coalescer deadline (seconds)")
     ap.add_argument("--control-period", type=float, default=0.5)
     ap.add_argument("--real-backend", action="store_true",
-                    help="a model forward as the backend (the LM backend "
-                         "is not ported yet: asking for it is an error)")
+                    help="LM-forward backend (measured wall time) instead "
+                         "of the seeded mock")
     ap.add_argument("--backend-jitter", type=float, default=0.05,
                     help="mock backend multiplicative latency noise")
+    ap.add_argument("--backend-pad", type=float, default=0.0,
+                    help="fixed per-frame pad added to the LM backend's "
+                         "measured latency")
     ap.add_argument("--wall-clock", action="store_true",
                     help="pace the replay in real time (the production "
                          "clock) instead of the deterministic virtual one")
@@ -70,9 +118,6 @@ def main(argv=None):
                     help="torch device of the session (default: the CUDA "
                          "card; 'cpu' runs the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.real_backend:
-        ap.error("--real-backend needs the LM backend, which the PyTorch "
-                 "port does not have yet; use the mock backend")
 
     h, w = 48, 80
     query = Query.single(RED, latency_bound=args.latency_bound, fps=args.fps)
@@ -107,7 +152,9 @@ def main(argv=None):
                 frame=None if rgb is None else rgb[t]))
     arrivals.sort(key=lambda a: a.t)
 
-    backend = MockBackend(jitter=args.backend_jitter, seed=args.seed)
+    backend = (make_lm_backend(pad=args.backend_pad, device=session.device)
+               if args.real_backend
+               else MockBackend(jitter=args.backend_jitter, seed=args.seed))
     clock = WallClock() if args.wall_clock else VirtualClock()
     service = ServeService(session, backend, clock=clock,
                            tokens=args.tokens, max_batch=args.max_batch,

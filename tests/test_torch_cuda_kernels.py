@@ -1,8 +1,13 @@
-"""The CUDA ``ingest_batch`` and ``hsv_hist`` kernels vs their plain
-PyTorch versions on the card (``pytest -m cuda``), and the torch control
-plane on the card vs its NumPy host twins and a CPU session. Each test
-skips itself when no card is present, so every worker collects the same
-tests.
+"""The CUDA ``ingest_batch``, ``hsv_hist`` and ``flash_attention``
+kernels vs their plain PyTorch versions on the card (``pytest -m cuda``),
+and the torch control plane on the card vs its NumPy host twins and a CPU
+session. Each test skips itself when no card is present, so every worker
+collects the same tests.
+
+``flash_attention``: against ``attention_ref`` on the card at the
+reference's Pallas-vs-oracle tolerance, atol = rtol = 2e-6 for float32
+and 2e-2 for bfloat16 (``kernel.TOL``); rows with no visible key exactly
+0.
 
 ``hsv_hist`` (``kernel.compare_hist_with_plain``): exact with a bool
 mask (int32 counters) and with 0/1 float weights; fractional float
@@ -22,6 +27,9 @@ import torch
 from repro_torch.core import Query, open_session
 from repro_torch.core import shed_queue as sq
 from repro_torch.core.colors import BLUE, GREEN, RED, YELLOW
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention.ops import flash_attention_bsnh
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.hsv_features import kernel, ref
 
 pytestmark = pytest.mark.cuda
@@ -266,3 +274,104 @@ def test_session_control_on_card_matches_cpu(exact_tick):
     da, db = a.state.as_dict(), b.state.as_dict()
     for k in da:
         np.testing.assert_array_equal(da[k], db[k], err_msg=k)
+
+
+FLASH_CASES = [
+    # B, Hq, Hkv, Sq, Sk, d, causal, window  (tests/test_kernels_flash.py)
+    (2, 4, 2, 256, 256, 64, True, None),
+    (1, 4, 4, 128, 256, 32, True, None),        # q at cache tail
+    (1, 8, 2, 256, 256, 64, True, 128),         # sliding window
+    (2, 2, 2, 128, 128, 64, False, None),       # bidirectional
+    (1, 2, 1, 512, 512, 128, True, 64),
+    (1, 16, 4, 128, 128, 64, True, None),       # wide GQA group
+]
+
+
+def _qkv(dev, B, Hq, Hkv, Sq, Sk, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev).to(dtype)
+    return t((B, Hq, Sq, d)), t((B, Hkv, Sk, d)), t((B, Hkv, Sk, d))
+
+
+def _flash_vs_ref(q, k, v, **kw):
+    block = {x: kw.pop(x) for x in ("block_q", "block_k") if x in kw}
+    before = fkernel.flash_attention.launches
+    got = fkernel.flash_attention(q, k, v, **kw, **block)
+    torch.cuda.synchronize()
+    assert fkernel.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    tol = fkernel.TOL[q.dtype]
+    assert got.dtype == q.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    return got, want
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reference_cases(case, dtype):
+    dev = _card()
+    B, Hq, Hkv, Sq, Sk, d, causal, window = case
+    q, k, v = _qkv(dev, B, Hq, Hkv, Sq, Sk, d, dtype)
+    _flash_vs_ref(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 50),
+                                           (False, None)])
+def test_flash_head_dims_and_ragged_tiles(d, dtype, causal, window):
+    """Every supported head dim; lengths that are no multiple of the
+    kernel's tiles (200 queries, 328 keys: q at the cache tail)."""
+    dev = _card()
+    q, k, v = _qkv(dev, 2, 6, 2, 200, 328, d, dtype, seed=d)
+    _flash_vs_ref(q, k, v, causal=causal, window=window, block_q=8,
+                  block_k=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_rows_before_the_first_key_are_zero(dtype):
+    """Sq > Sk (block_q=128, block_k=64, Sq=256, Sk=192): rows 0..63 see
+    no key and give exactly 0, like attention_ref (the reference's Pallas
+    kernel gives the mean of v[0:64] there)."""
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 2, 2, 256, 192, 64, dtype)
+    got, _ = _flash_vs_ref(q, k, v, causal=True, block_q=128, block_k=64)
+    assert not got[:, :, :64].any()
+    assert got[:, :, 64:].abs().amax() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [200, 256])
+def test_flash_bsnh_padding_and_strided_views(dtype, S):
+    """The model layout: padded (S=200) and unpadded (S=256, the (B, S,
+    H, d) tensors reach the kernel as strided views, no copy)."""
+    dev = _card()
+    rng = np.random.default_rng(S)
+
+    def t(h):
+        return torch.as_tensor(rng.standard_normal((2, S, h, 64)).astype(
+            np.float32), device=dev).to(dtype)
+    q, k, v = t(4), t(2), t(2)
+    got = flash_attention_bsnh(q, k, v, causal=True)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=True).transpose(1, 2)
+    tol = fkernel.TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_rejects_bad_inputs():
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 2, 1, 64, 64, 64, torch.float32)
+    with pytest.raises(ValueError):
+        fkernel.flash_attention(q.half(), k.half(), v.half(), block_q=64,
+                                block_k=64)
+    with pytest.raises(ValueError):
+        fkernel.flash_attention(q, k.bfloat16(), v, block_q=64, block_k=64)
+    with pytest.raises(ValueError):
+        fkernel.flash_attention(q[..., :48], k[..., :48], v[..., :48],
+                                block_q=64, block_k=64)
+    with pytest.raises(ValueError):
+        fkernel.flash_attention(q, k.cpu(), v.cpu(), block_q=64, block_k=64)

@@ -63,26 +63,56 @@ def test_new_service_modules_are_in_the_checks():
     mods = _port_modules()
     for m in ("repro_torch.serve.service", "repro_torch.serve.transport",
               "repro_torch.serve.fault", "repro_torch.serve.simulator",
-              "repro_torch.data.pipeline", "repro_torch.launch.serve"):
+              "repro_torch.data.pipeline", "repro_torch.launch.serve",
+              "repro_torch.kernels.build",
+              "repro_torch.kernels.flash_attention.ref",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.configs", "repro_torch.configs.base",
+              "repro_torch.configs.gemma3_12b", "repro_torch.sharding.api",
+              "repro_torch.models", "repro_torch.models.common",
+              "repro_torch.models.attention", "repro_torch.models.blocks",
+              "repro_torch.models.lm", "repro_torch.convert"):
         assert m in mods
 
 
-def test_kernel_libraries_are_keyed_on_every_compiled_file(tmp_path,
-                                                           monkeypatch):
-    """An edited shared header changes both libraries' keys, an edited
-    source only its own: a stale library is never reused."""
+def test_kernel_libraries_are_keyed_on_every_compiled_file(tmp_path):
+    """An edited shared header changes both camera libraries' keys, an
+    edited source only its own: a stale library is never reused."""
     import shutil
-    from repro_torch.kernels.hsv_features import kernel
-    csrc = tmp_path / "csrc"
-    shutil.copytree(kernel.CSRC, csrc)
-    monkeypatch.setattr(kernel, "CSRC", csrc)
-    before = {n: kernel.library_path(n) for n in kernel.LIBRARIES}
-    assert len(set(before.values())) == len(kernel.LIBRARIES)
-    (csrc / "hsv_common.cuh").write_text(
-        (csrc / "hsv_common.cuh").read_text() + "\n// edited\n")
-    after_header = {n: kernel.library_path(n) for n in kernel.LIBRARIES}
-    assert all(after_header[n] != before[n] for n in kernel.LIBRARIES)
-    (csrc / "hist.cu").write_text((csrc / "hist.cu").read_text() + "\n")
-    after_hist = {n: kernel.library_path(n) for n in kernel.LIBRARIES}
+    from repro_torch.kernels import build
+    root = tmp_path / "kernels"
+    shutil.copytree(build.KERNELS, root,
+                    ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+
+    def keys():
+        return {n: build.library_path(n, root) for n in build.LIBRARIES}
+
+    before = keys()
+    assert len(set(before.values())) == len(build.LIBRARIES)
+    hdr = root / "hsv_features" / "csrc" / "hsv_common.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after_header = keys()
+    assert all(after_header[n] != before[n] for n in ("ingest", "hist"))
+    assert after_header["flash"] == before["flash"]
+    hist = root / "hsv_features" / "csrc" / "hist.cu"
+    hist.write_text(hist.read_text() + "\n")
+    after_hist = keys()
     assert after_hist["hist"] != after_header["hist"]
     assert after_hist["ingest"] == after_header["ingest"]
+    flash = root / "flash_attention" / "csrc" / "flash.cu"
+    flash.write_text(flash.read_text() + "\n")
+    assert keys()["flash"] != after_hist["flash"]
+
+
+def test_one_build_route_for_every_kernel_library():
+    """Every CUDA source of the port is built by ``kernels/build.py``;
+    the camera kernels keep their bit-stable flags."""
+    from repro_torch.kernels import build
+    sources = sorted(str(p.relative_to(build.KERNELS))
+                     for p in build.KERNELS.rglob("*.cu"))
+    assert sorted(lib.source for lib in build.LIBRARIES.values()) == sources
+    for name in ("ingest", "hist"):
+        assert "-fmad=false" in build.LIBRARIES[name].flags
+    for lib in build.LIBRARIES.values():
+        assert "arch=compute_90a,code=sm_90a" in lib.flags

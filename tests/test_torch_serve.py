@@ -248,8 +248,6 @@ def test_launcher_runs_on_cpu(tmp_path, capsys):
     assert snap["counters"]["dispatch.fused"] > 0
     assert out.with_suffix(".csv").exists()
     assert "QoR=" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        launch.main(["--real-backend", "--device", "cpu"])
 
 
 def test_launcher_without_device_needs_a_card(tmp_path):
@@ -259,3 +257,95 @@ def test_launcher_without_device_needs_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--cams", "1", "--frames", "8",
                      "--metrics-out", str(tmp_path / "m.json")])
+
+
+def test_lm_backend_without_device_needs_a_card(tmp_path):
+    """``make_lm_backend()`` and ``--real-backend`` without ``--device``
+    mean the card: without one they raise instead of running the model
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default is valid here")
+    from repro_torch.launch import serve as launch
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.make_lm_backend()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--real-backend", "--cams", "1", "--frames", "8",
+                     "--metrics-out", str(tmp_path / "m.json")])
+
+
+def test_launcher_real_backend_on_cpu(tmp_path, monkeypatch):
+    """``--real-backend --device cpu``: the LM backend (the smoke config
+    of smollm-135m, one forward of 64 tokens a busy frame) serves every
+    frame the sender sends, on the launcher's device, and each measured
+    latency reaches the session's EWMA in completion order."""
+    from repro_torch.launch import serve as launch
+    calls, made = [], []
+
+    def recording_backend(**kw):
+        made.append(kw)
+        inner = make_lm_backend(**kw)
+
+        def backend(frame):
+            lat = inner(frame)
+            calls.append((frame, lat))
+            return lat
+        return backend
+
+    sessions = []
+
+    class Service(tserve.ServeService):
+        def __init__(self, session, *a, **k):
+            sessions.append(session)
+            super().__init__(session, *a, **k)
+
+    make_lm_backend = launch.make_lm_backend
+    monkeypatch.setattr(launch, "make_lm_backend", recording_backend)
+    monkeypatch.setattr(launch, "ServeService", Service)
+    out = tmp_path / "metrics.json"
+    res = launch.main(["--real-backend", "--device", "cpu", "--cams", "2",
+                       "--frames", "40", "--metrics-out", str(out)])
+    assert made == [{"pad": 0.0, "device": torch.device("cpu")}]
+    c = res.metrics["counters"]
+    assert c["dispatch.fused"] > 0 and c["sender.sent"] > 0
+    # an admitted frame is sent to the backend, dropped from the queue
+    # (evicted, or expired at the sender: how many depends on the
+    # measured latencies) or still queued
+    st = sessions[0].stats
+    admitted = st.offered - st.dropped_admission
+    assert st.offered == 80 and admitted > 0
+    assert admitted == st.sent + st.dropped_queue + len(sessions[0])
+    assert len(calls) == st.sent == c["sender.sent"] == c["backend.done"] \
+        == len(res.processed)
+    sent = [(f.cam_id, f.frame_idx) for f, _ in calls]
+    assert sent == [(p.record.cam_id, p.record.frame_idx)
+                    for p in res.processed]
+    # the transport floors a measured latency at MIN_LATENCY
+    lats = [max(lat, tserve.transport.MIN_LATENCY) for _, lat in calls]
+    assert [p.backend_latency for p in res.processed] == lats
+    assert any(f.busy for f, _ in calls) and max(lats) > 0.0
+    # the session's latency EWMA is the fold of exactly these latencies
+    fold = tcore.open_session(tcore.Query.single("red"), 2, device="cpu")
+    for lat in lats:
+        fold.report_backend_latency(lat)
+    np.testing.assert_array_equal(sessions[0].state.proc_q.numpy(),
+                                  fold.state.proc_q.numpy())
+
+
+def test_lm_backend_skips_the_forward_for_idle_frames(monkeypatch):
+    """One warm-up forward, then one forward a busy frame and none for
+    an idle one; the pad is added to every measured latency."""
+    from repro_torch.launch import serve as launch
+    shapes, forward = [], launch.lm_forward
+
+    def counting_forward(cfg, params, batch, **kw):
+        shapes.append(tuple(batch["tokens"].shape))
+        return forward(cfg, params, batch, **kw)
+
+    monkeypatch.setattr(launch, "lm_forward", counting_forward)
+    backend = launch.make_lm_backend(seq=16, pad=0.25, device="cpu")
+    assert shapes == [(1, 16)]
+    busy = backend(Rec(0, 0, 0.0, busy=True))
+    assert shapes == [(1, 16)] * 2
+    idle = backend(Rec(0, 1, 0.0, busy=False))
+    assert shapes == [(1, 16)] * 2
+    assert busy > 0.25 and idle >= 0.25
