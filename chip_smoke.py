@@ -57,6 +57,14 @@ Phases, each printing one JSON line:
    ``attention_ref`` at 2e-6 / 2e-2 (case (a) in float32 to the float64
    answer, see ``FLASH_F64_HELD``) and timed (kernel, plain version, and
    ``scaled_dot_product_attention`` as a yardstick) beside its bound;
+   ``ms`` is one entry-point call (the wrapper's host work and the
+   padded case's copies included), ``kernel_device_ms`` the kernel's own
+   device time and ``library_device_ms`` SDPA's, from ``torch.profiler``
+   (each of their kernels launches once a call; null where three
+   profiler sessions in a row delivered no device event); each line
+   names the kernel that ran (``cuda_core_fp32``, or ``mma_bf16``, the
+   tensor-core kernel, with its registers and spills from the build
+   log), and a bf16 line its speed-up over the same case in float32;
 10. the ``kernels`` line, then the final ``{"ok": true, ...}`` line.
 
 Frames are seeded synthetic traffic scenes (``data/synthetic.py``) at
@@ -143,6 +151,36 @@ def cuda_ms(fn, runs: int = 7, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+EMPTY_PROFILER_SESSIONS = [0]    # sessions ``launch_ms`` had to try again
+
+
+def launch_ms(fn, runs: int = 5, sessions: int = 3) -> dict:
+    """Mean device time of one launch of each kernel that ``fn`` launches,
+    from ``torch.profiler`` over ``runs`` calls after one warm-up call: a
+    kernel's total over its own launch count, so a launch the profiler
+    missed does not lower it. The profiler now and then delivers no device
+    event for a whole session; such a session is tried again, up to
+    ``sessions`` in all, and ``{}`` means that none delivered any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.self_device_time_total / 1e3 / e.count
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (e.self_device_time_total or 0) > 0}
+        if got:
+            return got
+        EMPTY_PROFILER_SESSIONS[0] += 1
+    return {}
 
 
 class Upsampled:
@@ -723,6 +761,7 @@ def flash_phase(dev, params) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config, scaled
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention_bsnh
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -730,6 +769,7 @@ def flash_phase(dev, params) -> dict:
     from repro_torch.models.common import apply_rope, rmsnorm
     from repro_torch.models.lm import embed_tokens
 
+    mma_usage = fk.mma_kernel_usage(kbuild.BUILD.log)
     cfg = get_config(LM_ARCH)
     B, S = FLASH_A
     toks = torch.as_tensor(np.random.default_rng(4).integers(
@@ -846,8 +886,20 @@ def flash_phase(dev, params) -> dict:
                 if c["window"] is not None:
                     mask &= (qp - kp) < c["window"]
                 causal = False
-            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True))
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=causal,
+                    enable_gqa=True)
+            sdpa_ms = cuda_ms(sdpa)
+            # a profiler session with no device event at all says nothing
+            # of which kernel ran: its times are then not measured (None)
+            on_card = launch_ms(run)
+            mine = [t for key, t in on_card.items()
+                    if "flash_mma_bf16" in key or "flash_kernel" in key]
+            if on_card and len(mine) != 1:
+                raise AssertionError(f"flash {name} {dtype}: kernels on the "
+                                     f"card {sorted(on_card)}")
+            lib_on_card = launch_ms(sdpa)
             ops = fk.attention_ops(Bq, Hq, Sq, Sk, d, **kw)
             nbytes = fk.attention_bytes(Bq, Hq, Hkv, Sq, Sk, d,
                                         q.element_size())
@@ -855,17 +907,33 @@ def flash_phase(dev, params) -> dict:
             peak = F32_OPS_PER_S if dtype == torch.float32 \
                 else BF16_OPS_PER_S
             ops_ms = ops / peak * 1e3
+            if dtype == torch.bfloat16:
+                path = dict(path="mma_bf16", ptxas=mma_usage.get(d))
+            else:
+                path = dict(path="cuda_core_fp32")
             rep = dict(
                 shape={"B": Bq, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
                        "d": d, "window": c["window"]},
-                dtype=dname, max_abs_err=err,
+                dtype=dname, **path, max_abs_err=err,
                 tol=tol, held_to=held, kernel_vs_f64=err64,
-                plain_vs_f64=plain64, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                plain_vs_f64=plain64, ms=ms,
+                kernel_device_ms=mine[0] if mine else None,
+                plain_ms=plain_ms, library_ms=sdpa_ms,
+                library_device_ms=(sum(lib_on_card.values())
+                                   if lib_on_card else None),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 f32_cuda_core_bound_ms=ops / F32_OPS_PER_S * 1e3,
                 bf16_tensor_core_bound_ms=ops / BF16_OPS_PER_S * 1e3,
-                ops=ops, bytes=nbytes, achieved_tflops=ops / ms / 1e9)
+                ops=ops, bytes=nbytes, achieved_tflops=ops / ms / 1e9,
+                empty_profiler_sessions=EMPTY_PROFILER_SESSIONS[0])
+            fp32 = report.get(f"{name}_float32")
+            if dtype == torch.bfloat16 and fp32 is not None:
+                rep["speedup_vs_float32"] = fp32["ms"] / ms
+                rep["device_speedup_vs_float32"] = (
+                    fp32["kernel_device_ms"] / rep["kernel_device_ms"]
+                    if fp32["kernel_device_ms"] and rep["kernel_device_ms"]
+                    else None)
             report[f"{name}_{rep['dtype']}"] = rep
             emit({"phase": "flash", "case": name, **rep})
     main = report["a_smollm_layer0_bfloat16"]

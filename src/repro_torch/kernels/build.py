@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from dataclasses import dataclass
@@ -45,12 +46,15 @@ LIBRARIES: Dict[str, Library] = {
                       ("hsv_features/csrc/hsv_common.cuh",), HSV_FLAGS),
     "hist": Library("hsv_features/csrc/hist.cu",
                     ("hsv_features/csrc/hsv_common.cuh",), HSV_FLAGS),
-    "flash": Library("flash_attention/csrc/flash.cu", (), FLASH_FLAGS),
+    "flash": Library("flash_attention/csrc/flash.cu",
+                     ("flash_attention/csrc/flash_mma.cuh",), FLASH_FLAGS),
 }
 
 
 class BUILD:
-    """The loaded libraries, built once per process at first use."""
+    """The loaded libraries, built once per process at first use, and the
+    compiler's output for each (kept beside its ``.so``, so a library
+    built by an earlier process still has its ``ptxas`` report)."""
     libs: Dict[str, ctypes.CDLL] = {}
     seconds: float = 0.0
     log: str = ""
@@ -75,6 +79,39 @@ def library_path(name: str, root: Path = KERNELS) -> Path:
     for f in (lib.source, *lib.headers):
         h.update(Path(f).name.encode() + b"\0" + (root / f).read_bytes())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def _log_path(so: Path) -> Path:
+    return so.with_suffix(".log")
+
+
+def _read_log(so: Path) -> str:
+    log = _log_path(so)
+    return log.read_text() if log.exists() else ""
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Registers and spill bytes of every kernel in ``nvcc -Xptxas -v``
+    output, keyed by the kernel's mangled name."""
+    usage: Dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            entry = m.group(1)
+            usage[entry] = {}
+        elif entry is None:
+            continue
+        elif m := _SPILL.search(line):
+            usage[entry].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        elif m := _REGS.search(line):
+            usage[entry]["registers"] = int(m.group(1))
+    return usage
 
 
 def build() -> Dict[str, ctypes.CDLL]:
@@ -103,14 +140,17 @@ def build() -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             failed.append(LIBRARIES[name].source)
         else:
+            tmp.with_suffix(".log").write_text(out)
+            os.replace(tmp.with_suffix(".log"), _log_path(paths[name]))
             os.replace(tmp, paths[name])
-    BUILD.log = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD.log}")
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    BUILD.log = "\n".join(f"== {LIBRARIES[name].source}\n{_read_log(so)}"
+                          for name, so in paths.items())
     BUILD.libs = {name: ctypes.CDLL(str(so)) for name, so in paths.items()}
     BUILD.seconds = time.perf_counter() - t0
     return BUILD.libs
 
 
 __all__ = ["BUILD", "BUILD_DIR", "LIBRARIES", "Library", "build",
-           "library_path"]
+           "library_path", "ptxas_usage"]

@@ -1,24 +1,29 @@
 // GQA flash attention (causal, sliding window, q at the cache tail) for
-// sm_90a, in float32 on the CUDA cores.
+// sm_90a: float32 inputs on the CUDA cores (this file's kernel), bfloat16
+// inputs on the tensor cores (flash_mma.cuh). One kernel per dtype.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention (body
 // _flash_kernel). Same function: out = softmax(q k^T * scale + mask) v per
 // (batch, query head), query head h reading KV head h / (Hq / Hkv), the
 // causal mask with q at the tail of the keys (offset Sk - Sq) and an
-// optional sliding window; inputs float32 or bfloat16, every product and
-// sum in float32, the output in the inputs' type.
+// optional sliding window; the output in the inputs' type. Float32 inputs:
+// every product and sum in float32 (below). Bfloat16 inputs: products on
+// the tensor cores with float32 accumulation, softmax and sums in float32,
+// the probabilities rounded to bfloat16 before the PV product
+// (flash_mma.cuh).
 //
 // What bounds it on this card: attention is 4 * Sq * Sk * d operations
 // per (batch, head) pair against (Sq + 2 Sk + Sq) * d elements moved, so
-// at the serving shapes it is bound by operations, not bytes. This first
-// design multiplies in float32 on the CUDA cores (no TF32, no bf16
+// at the serving shapes it is bound by operations, not bytes. The float32
+// kernel multiplies in float32 on the CUDA cores (no TF32, no bf16
 // products: the reference tolerance for float32 is 2e-6), so its ceiling
-// is the float32 CUDA-core rate, far under the tensor cores' bf16 rate.
+// is the float32 CUDA-core rate.
 //
-// Design. One block of 256 threads per (q tile, query head, batch); a
-// loop over the K tiles replaces the TPU's sequential grid axis, with the
-// running max m, denominator l and accumulator acc of each row in float32
+// Design of the float32 kernel. One block of 256 threads per (q tile,
+// query head, batch); a loop over the K tiles replaces the TPU's
+// sequential grid axis, with the running max m, denominator l and
+// accumulator acc of each row in float32
 // registers. K tiles that the causal / window predicate rules out are
 // skipped (the reference's block-level predicate). Q and K tiles are held
 // transposed in shared memory (rows padded by one float: no bank
@@ -47,18 +52,14 @@ struct FlashParams {            // mirrored by _FlashParams in kernel.py
     int bf16;                     // 0: float32 tensors, 1: bfloat16
 };
 
+#include "flash_mma.cuh"          // the bfloat16 kernel (tensor cores)
+
 namespace {
 
 constexpr int THREADS = 256;   // 16 row groups x 16 column lanes
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);     // round to nearest even, as torch does
-}
 
 template <int HD, int BQ, int BK>
 constexpr size_t smem_floats() {
@@ -260,6 +261,6 @@ extern "C" int flash_attention_launch(const FlashParams* p, const void* q,
                                       const void* k, const void* v, void* o,
                                       void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return p->bf16 ? dispatch<__nv_bfloat16>(*p, q, k, v, o, s)
+    return p->bf16 ? flash_mma::dispatch(*p, q, k, v, o, s)
                    : dispatch<float>(*p, q, k, v, o, s);
 }

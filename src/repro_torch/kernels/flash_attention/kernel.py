@@ -6,8 +6,11 @@ kernel and its wrapper.
 signature (``interpret=`` dropped) and asserts. For a CUDA tensor it
 launches ``csrc/flash.cu`` (CUDA C++ for ``sm_90a``, built by
 ``repro_torch.kernels.build`` at first use and loaded with ``ctypes``) or
-raises; for a CPU tensor, and only then, it runs the plain PyTorch
-version ``ref.attention_ref``. ``block_q``/``block_k`` are the
+raises: float32 inputs run its CUDA-core kernel, bfloat16 inputs the
+tensor-core kernel of ``csrc/flash_mma.cuh`` (``mma.sync`` products fed
+by ``cp.async``, whose 16-byte copies need aligned views:
+``check_cp_async_alignment``). For a CPU tensor, and only then, it runs
+the plain PyTorch version ``ref.attention_ref``. ``block_q``/``block_k`` are the
 reference's tiling contract (sequence lengths must be multiples of
 them); the CUDA kernel picks its own tiles per head dim and masks ragged
 edges itself. One difference from the reference kernel is deliberate: a
@@ -21,7 +24,8 @@ mean of the first live K tile's values.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import re
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -55,6 +59,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_MMA_ENTRY = re.compile(r"flash_mma_bf16ILi(\d+)ELi(\d+)E")
+
+
+def mma_kernel_usage(log: str) -> Dict[int, dict]:
+    """Registers and spill bytes of the bf16 tensor-core kernel per head
+    dim (with its K tile), from the build's ``ptxas -v`` output."""
+    out = {}
+    for name, use in kbuild.ptxas_usage(log).items():
+        if m := _MMA_ENTRY.search(name):
+            out[int(m.group(1))] = dict(block_k=int(m.group(2)), **use)
+    return out
+
+
 def _check(q, k, v) -> None:
     B, Hq, Sq, d = q.shape
     if q.device.type != "cuda":
@@ -79,6 +96,47 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name}'s head dim must be contiguous")
 
 
+CP_ASYNC_BYTES = 16     # one cp.async copy of the bf16 kernel
+
+
+def check_cp_async_alignment(**tensors) -> None:
+    """The bf16 kernel copies rows of 8 elements with 16-byte
+    ``cp.async``: each tensor's base must be 16-byte aligned and its
+    batch, head and seq strides multiples of 8 elements (a dimension of
+    size 1 is never stepped over). Raises ``ValueError`` naming the tensor
+    and the stride; a misaligned view is not copied behind the caller's
+    back."""
+    for name, t in tensors.items():
+        if t.data_ptr() % CP_ASYNC_BYTES:
+            raise ValueError(f"{name}'s data pointer is not "
+                             f"{CP_ASYNC_BYTES}-byte aligned: the bf16 kernel "
+                             f"loads it with {CP_ASYNC_BYTES}-byte cp.async")
+        per = CP_ASYNC_BYTES // t.element_size()
+        for axis, n, st in zip(("batch", "head", "seq"), t.shape[:3],
+                               t.stride()[:3]):
+            if n > 1 and st % per:
+                raise ValueError(f"{name}'s {axis} stride {st} is not a "
+                                 f"multiple of {per} elements: the bf16 "
+                                 f"kernel loads it with {CP_ASYNC_BYTES}-byte "
+                                 f"cp.async")
+
+
+def pack_params(q, k, v, out, *, causal: bool, window: Optional[int],
+                scale: float) -> _FlashParams:
+    """The kernel's parameters: shapes, mask, scale and the element
+    strides (batch, head, seq) of q, k, v and out as they are."""
+    B, Hq, Sq, d = q.shape
+    p = _FlashParams(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, Sk=k.shape[2], d=d,
+                     causal=int(bool(causal)),
+                     has_window=int(window is not None),
+                     window=int(window or 0), scale=float(scale),
+                     bf16=int(q.dtype == torch.bfloat16))
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
+        for axis, a in zip("bhs", t.stride()[:3]):
+            setattr(p, f"{name}_s{axis}", a)
+    return p
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None,
@@ -88,7 +146,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     Sq and Sk must be multiples of the block sizes (pad outside). The
     window applies with ``causal`` only, as in the reference. Returns
-    (B, Hq, Sq, d) in q's dtype; softmax and products in float32.
+    (B, Hq, Sq, d) in q's dtype. Float32: products, softmax and sums in
+    float32. Bfloat16 on the card: products on the tensor cores with
+    float32 accumulation, softmax and sums in float32, the probabilities
+    rounded to bfloat16 before the product with v (as the reference
+    model's attention does); the views must meet
+    ``check_cp_async_alignment``.
     """
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -99,17 +162,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale)
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        check_cp_async_alignment(q=q, k=k, v=v)
     out = torch.empty((B, Hq, Sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    p = _FlashParams(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk, d=d,
-                     causal=int(bool(causal)),
-                     has_window=int(window is not None),
-                     window=int(window or 0), scale=float(scale),
-                     bf16=int(q.dtype == torch.bfloat16))
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
-        for axis, a in zip("bhs", t.stride()[:3]):
-            setattr(p, f"{name}_s{axis}", a)
+    p = pack_params(q, k, v, out, causal=causal, window=window,
+                    scale=scale)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(ctypes.byref(p), q.data_ptr(),
@@ -157,5 +216,6 @@ TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 
 
 __all__ = ["flash_attention", "visible_pairs", "attention_ops",
-           "attention_bytes", "TOL", "HEAD_DIMS", "DEFAULT_BLOCK_Q",
+           "attention_bytes", "check_cp_async_alignment", "pack_params",
+           "mma_kernel_usage", "TOL", "HEAD_DIMS", "DEFAULT_BLOCK_Q",
            "DEFAULT_BLOCK_K"]

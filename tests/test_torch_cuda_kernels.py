@@ -7,7 +7,10 @@ collects the same tests.
 ``flash_attention``: against ``attention_ref`` on the card at the
 reference's Pallas-vs-oracle tolerance, atol = rtol = 2e-6 for float32
 and 2e-2 for bfloat16 (``kernel.TOL``); rows with no visible key exactly
-0.
+0. The bfloat16 tensor-core kernel also at its own edges: GQA groups,
+a few queries at the tail of ragged keys, windows narrower than a tile
+and wider than the keys, key counts one off a tile multiple, bit-identical
+repeats and the refusal of views its cp.async cannot load.
 
 ``hsv_hist`` (``kernel.compare_hist_with_plain``): exact with a bool
 mask (int32 counters) and with 0/1 float weights; fractional float
@@ -375,3 +378,77 @@ def test_flash_rejects_bad_inputs():
                                 block_q=64, block_k=64)
     with pytest.raises(ValueError):
         fkernel.flash_attention(q, k.cpu(), v.cpu(), block_q=64, block_k=64)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (9, 3), (8, 1)])
+def test_flash_bf16_gqa_groups(Hq, Hkv):
+    """Groups of 1, 3 and 8 query heads on one KV head."""
+    dev = _card()
+    q, k, v = _qkv(dev, 2, Hq, Hkv, 192, 192, 64, torch.bfloat16,
+                   seed=Hq * Hkv)
+    _flash_vs_ref(q, k, v, causal=True, window=None, block_q=64,
+                  block_k=64)
+
+
+@pytest.mark.parametrize("Sq", [1, 17])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_bf16_queries_at_the_tail_of_ragged_keys(Sq, window):
+    """1 and 17 queries at the tail of 1000 keys: ragged in both, the
+    last K tile cut by Sk and the single q tile mostly zero-filled."""
+    dev = _card()
+    q, k, v = _qkv(dev, 2, 6, 2, Sq, 1000, 64, torch.bfloat16, seed=Sq)
+    _flash_vs_ref(q, k, v, causal=True, window=window, block_q=1,
+                  block_k=8)
+
+
+@pytest.mark.parametrize("window", [16, 1100])
+def test_flash_bf16_window_narrower_than_a_tile_and_wider_than_the_keys(
+        window):
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 4, 2, 1000, 1000, 128, torch.bfloat16,
+                   seed=window)
+    got, want = _flash_vs_ref(q, k, v, causal=True, window=window,
+                              block_q=8, block_k=8)
+    if window > 1000:           # as wide as no window at all
+        full = fkernel.flash_attention(q, k, v, causal=True, block_q=8,
+                                       block_k=8)
+        assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("d", fkernel.HEAD_DIMS)
+@pytest.mark.parametrize("S", [191, 193])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_head_dims_one_off_a_tile(d, S, causal):
+    """Every head dim at 64 n - 1 and 64 n + 1 keys (and queries)."""
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 4, 2, S, S, d, torch.bfloat16, seed=d + S)
+    _flash_vs_ref(q, k, v, causal=causal, window=None, block_q=1,
+                  block_k=1)
+
+
+def test_flash_bf16_repeats_bit_identical():
+    dev = _card()
+    q, k, v = _qkv(dev, 2, 8, 2, 1000, 1000, 128, torch.bfloat16, seed=7)
+    kw = dict(causal=True, window=300, block_q=8, block_k=8)
+    a = fkernel.flash_attention(q, k, v, **kw)
+    b = fkernel.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_flash_bf16_rejects_views_cp_async_cannot_load():
+    """A view one element off a 16-byte boundary, or with a seq stride
+    that is no multiple of 8 elements, raises before any launch."""
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 2, 1, 64, 64, 64, torch.bfloat16)
+    flat = torch.zeros(q.numel() + 8, dtype=q.dtype, device=dev)
+    shifted = flat[1:1 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    odd = torch.zeros((1, 1, 64, 65), dtype=q.dtype, device=dev)[..., :64]
+    odd.copy_(k)
+    before = fkernel.flash_attention.launches
+    with pytest.raises(ValueError, match="q's data pointer"):
+        fkernel.flash_attention(shifted, k, v, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="k's seq stride 65"):
+        fkernel.flash_attention(q, odd, v, block_q=64, block_k=64)
+    assert fkernel.flash_attention.launches == before

@@ -163,3 +163,61 @@ def test_work_and_traffic_counts():
         4 * 2 * 4 * 16 * 64
     assert tkernel.attention_bytes(1, 4, 2, 8, 16, 32, 2) == \
         (2 * 4 * 8 + 2 * 2 * 16) * 32 * 2
+
+
+@pytest.mark.parametrize("d", tkernel.HEAD_DIMS)
+def test_bf16_alignment_check_passes_bsnh_views(d):
+    """The model layout's head-major views (strides S*H*d, d, H*d) and the
+    padded path's fresh tensors meet the bf16 kernel's 16-byte cp.async
+    rule, so ``flash_attention_bsnh`` never trips it."""
+    B, S, Hq, Hkv = 2, 48, 9, 3
+    q = torch.zeros((B, S, Hq, d), dtype=torch.bfloat16)
+    kv = torch.zeros((B, S, Hkv, d), dtype=torch.bfloat16)
+    tkernel.check_cp_async_alignment(q=q.transpose(1, 2),
+                                     k=kv.transpose(1, 2),
+                                     v=kv.transpose(1, 2))
+    tkernel.check_cp_async_alignment(
+        q=torch.zeros((B, Hq, 64, d), dtype=torch.bfloat16))
+    # one query row: its seq stride is never stepped over
+    tkernel.check_cp_async_alignment(
+        q=torch.zeros((B, 1, Hq, d + 8), dtype=torch.bfloat16)
+        [..., :d].transpose(1, 2))
+
+
+def test_bf16_alignment_check_rejects_offset_and_odd_strides():
+    B, H, S, d = 1, 2, 64, 64
+    flat = torch.zeros(B * H * S * d + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k's data pointer"):
+        tkernel.check_cp_async_alignment(
+            q=flat[:B * H * S * d].view(B, H, S, d),
+            k=flat[1:1 + B * H * S * d].view(B, H, S, d))
+    odd = torch.zeros((B, H, S, d + 1), dtype=torch.bfloat16)[..., :d]
+    with pytest.raises(ValueError, match="v's seq stride 65"):
+        tkernel.check_cp_async_alignment(v=odd)
+    heads = torch.zeros((B, S, H, d + 4), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q's head stride 68"):
+        tkernel.check_cp_async_alignment(q=heads[..., :d].transpose(1, 2))
+    batch = torch.zeros(2 * H * S * d + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q's batch stride"):
+        tkernel.check_cp_async_alignment(q=torch.as_strided(
+            batch, (2, H, S, d), (H * S * d + 4, S * d, d, 1)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_params_carry_the_views_strides(dtype):
+    """The wrapper hands the kernel every view's element strides as they
+    are (no copy) and its dtype flag; one packing for both kernels."""
+    B, S, Hq, Hkv, d = 2, 128, 9, 3, 64
+    q = torch.zeros((B, S, Hq, d), dtype=dtype).transpose(1, 2)
+    k = torch.zeros((B, S, Hkv, d), dtype=dtype).transpose(1, 2)
+    v = torch.zeros((B, Hkv, S, d), dtype=dtype)
+    out = torch.empty((B, Hq, S, d), dtype=dtype)
+    p = tkernel.pack_params(q, k, v, out, causal=True, window=16,
+                            scale=0.125)
+    assert (p.B, p.Hq, p.Hkv, p.Sq, p.Sk, p.d) == (B, Hq, Hkv, S, S, d)
+    assert (p.causal, p.has_window, p.window, p.scale) == (1, 1, 16, 0.125)
+    assert p.bf16 == int(dtype == torch.bfloat16)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
+        assert tuple(getattr(p, f"{name}_s{a}") for a in "bhs") == \
+            t.stride()[:3]
+    assert (p.q_sb, p.q_sh, p.q_ss) == (S * Hq * d, d, Hq * d)

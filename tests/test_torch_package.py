@@ -116,3 +116,52 @@ def test_one_build_route_for_every_kernel_library():
         assert "-fmad=false" in build.LIBRARIES[name].flags
     for lib in build.LIBRARIES.values():
         assert "arch=compute_90a,code=sm_90a" in lib.flags
+
+
+def test_flash_library_is_keyed_on_its_bf16_header(tmp_path):
+    """The bf16 kernel lives in ``flash_mma.cuh``: editing it rebuilds the
+    flash library and no other."""
+    import shutil
+    from repro_torch.kernels import build
+    root = tmp_path / "kernels"
+    shutil.copytree(build.KERNELS, root,
+                    ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    before = {n: build.library_path(n, root) for n in build.LIBRARIES}
+    hdr = root / "flash_attention" / "csrc" / "flash_mma.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n, root) for n in build.LIBRARIES}
+    assert after["flash"] != before["flash"]
+    assert all(after[n] == before[n] for n in ("ingest", "hist"))
+
+
+PTXAS_LOG = """== flash_attention/csrc/flash.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN9flash_mma14flash_mma_bf16ILi64ELi64EEEv11FlashParamsPK13__nv_bfloat16S4_S4_PS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_mma14flash_mma_bf16ILi64ELi64EEEv11FlashParamsPK13__nv_bfloat16S4_S4_PS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, used 1 barriers, 488 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN9flash_mma14flash_mma_bf16ILi256ELi64EEEv11FlashParamsPK13__nv_bfloat16S4_S4_PS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_mma14flash_mma_bf16ILi256ELi64EEEv11FlashParamsPK13__nv_bfloat16S4_S4_PS2_
+    40 bytes stack frame, 44 bytes spill stores, 48 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 488 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelIfLi64ELi64ELi64EEEv11FlashParamsPKT_S4_S4_PS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelIfLi64ELi64ELi64EEEv11FlashParamsPKT_S4_S4_PS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 488 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_gives_registers_and_spills_per_kernel():
+    """The build log's ``-Xptxas -v`` lines, read per kernel; the bf16
+    tensor-core kernel's instantiations keyed by head dim."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel
+    usage = build.ptxas_usage(PTXAS_LOG)
+    assert len(usage) == 3
+    fp32 = [u for n, u in usage.items() if "flash_kernelIf" in n]
+    assert fp32 == [dict(registers=90, spill_stores=0, spill_loads=0)]
+    assert kernel.mma_kernel_usage(PTXAS_LOG) == {
+        64: dict(block_k=64, registers=126, spill_stores=0, spill_loads=0),
+        256: dict(block_k=64, registers=255, spill_stores=44,
+                  spill_loads=48)}
+    assert build.ptxas_usage("") == {}
