@@ -14,7 +14,13 @@ Phases, each printing one JSON line:
 3. kernel — the CUDA ``ingest_batch`` against its plain PyTorch version
    on the card at the serve shape (8 cameras x 8 frames of 720x1280, two
    colors): bg_valid=True, and bg_valid=False with the bounding box;
-   errors, differing count units, kernel / plain / bound milliseconds;
+   errors, differing count units, two calls bit-identical, a call's and
+   the kernel's device milliseconds beside the plain version's and the
+   bound, achieved GB/s (also as if the background lane had gone through
+   HBM on every frame), a streaming ``rgb.sum()`` as a yardstick of the
+   reachable HBM rate, the work plan, the kernel's ptxas registers and
+   spills and its device launches a call; then ``kernel_barrier``, what
+   a frame costs beyond its pixels at the full resident grid;
 4. serve — ``open_session`` on the card, ``fit`` on PFs from
    ``session.ingest`` of a training clip, then per step
    ``report_backend_latency`` -> ``step(frames)`` -> ``next_frames``;
@@ -22,8 +28,9 @@ Phases, each printing one JSON line:
    utilities (read back from the CDF ring they were pushed to) replayed
    into a ``device="cpu"`` session started from the same state must give
    bit-identical decisions, evictions, rates, pops and queue lanes;
-5. profile — a profiled window of serve steps, then the control plane
-   alone;
+5. profile — a profiled window of serve steps (the ingest kernel's
+   device time and launches a step; a window with device events but no
+   ingest kernel fails), then the control plane alone;
 6. hist — the CUDA ``hsv_hist_batch`` against its plain version at the
    serve shape (64 frames of 720x1280, two colors), with the foreground
    mask of ``data/background.py``'s ``batch_foreground`` as a bool mask
@@ -117,6 +124,8 @@ FLASH_C_PAD = (2, 2000)         # batch, sequence (pads to 2048)
 # case is.
 FLASH_F64_HELD = {("a_smollm_layer0", "float32")}
 FLASH_F32_SLACK = 2.0
+# the ingest barrier probe: one 1024-pixel tile per resident block
+BARRIER_N, BARRIER_FRAMES = 1024, 16
 
 
 def emit(obj) -> None:
@@ -286,6 +295,12 @@ def main() -> int:
     gain0 = torch.as_tensor(rng.uniform(0.9, 1.1, C).astype(np.float32),
                             device=dev)
     results = {}
+    plan = kernel.work_plan(C, N, kernel.resident_blocks(dev))
+    usage = [dict(u, entry=e) for e, u in kbuild.ptxas_usage(
+        kbuild.BUILD.log).items() if "ingest_kernel" in e]
+    # what a plain streaming read of the same RGB takes on this card (a
+    # yardstick of the HBM rate within reach; used nowhere in the port)
+    rgb_read_ms = cuda_ms(lambda: rgb.sum(), runs=10)
     for label, kw in (("bg_valid", dict(bg_valid=True, width=0)),
                       ("fresh_bbox", dict(bg_valid=False, width=W * UP))):
         args = (rgb, bg0, gain0, M, norm, hr)
@@ -293,8 +308,17 @@ def main() -> int:
         torch.cuda.synchronize()
         want = ref.ingest_batch_ref(*args, **kw)
         rep = kernel.compare_with_plain(got, want, M, norm)
-        del got, want
+        again = kernel.ingest_batch(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ingest ({label}): two calls differ")
+        del got, want, again
         ms = cuda_ms(lambda: kernel.ingest_batch(*args, **kw), runs=20)
+        on_card = launch_ms(lambda: kernel.ingest_batch(*args, **kw))
+        mine = [t for k, t in on_card.items() if "ingest_kernel" in k]
+        if on_card and len(mine) != 1:
+            raise AssertionError(f"ingest ({label}): kernels on the card "
+                                 f"{sorted(on_card)}")
         plain_ms = cuda_ms(lambda: ref.ingest_batch_ref(*args, **kw),
                            runs=3, warmup=1)
         nbytes = kernel.bytes_moved(C, T, N, nc, nb, kw["bg_valid"],
@@ -302,12 +326,32 @@ def main() -> int:
         ops = kernel.OPS_PER_PIXEL * C * T * N
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
+        # the background lane read and written on every frame instead of
+        # once a call: the bytes if L2 did not keep it between frames
+        lane_every_frame = nbytes + 2 * (T - 1) * C * N * 4
+        dev_ms = mine[0] if mine else None
         results[label] = dict(
-            rep, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            rep, ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=nbytes, ops=ops, device_launches_per_call=2 * T + 2)
+            bytes=nbytes, ops=ops,
+            achieved_gb_per_s=nbytes / ms / 1e6,
+            device_achieved_gb_per_s=(nbytes / dev_ms / 1e6 if dev_ms
+                                      else None),
+            bytes_lane_every_frame=lane_every_frame,
+            device_gb_per_s_lane_every_frame=(lane_every_frame / dev_ms / 1e6
+                                              if dev_ms else None),
+            rgb_sum_ms=rgb_read_ms,
+            rgb_sum_gb_per_s=C * T * N * 12 / rgb_read_ms / 1e6,
+            device_launches_per_call=kernel.DEVICE_LAUNCHES_PER_CALL,
+            plan=dict(tile=plan.tile, tiles_per_camera=plan.ntiles,
+                      grid=plan.grid,
+                      resident_blocks=kernel.resident_blocks(dev)),
+            ptxas=usage, empty_profiler_sessions=EMPTY_PROFILER_SESSIONS[0])
         emit({"phase": "kernel", "config": label, "shape": [C, T, N, 3],
               **results[label]})
+    emit({"phase": "kernel_barrier", **barrier_cost(dev, kernel, hr, M,
+                                                    norm)})
     del rgb, prev, bg0
 
     # -- the serve path ------------------------------------------------------
@@ -393,8 +437,15 @@ def main() -> int:
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     dev_us = sum(r[0] for r in rows)
-    ours = sum(r[0] for r in rows if r[1].startswith(
-        ("frame_kernel", "gain_kernel", "init_kernel", "finalize_kernel")))
+    ingest_rows = [r for r in rows if "ingest_kernel" in r[1]]
+    ours = sum(r[0] for r in ingest_rows)
+    if rows and not ours:
+        raise AssertionError(f"profile: device events but no ingest kernel "
+                             f"({[r[1][:40] for r in rows[:12]]})")
+    ingest_launches = sum(r[2] for r in ingest_rows)
+    if ingest_launches > reps * kernel.DEVICE_LAUNCHES_PER_CALL:
+        raise AssertionError(f"profile: {ingest_launches} ingest launches "
+                             f"in {reps} steps")
     control = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -405,6 +456,7 @@ def main() -> int:
           "wall_ms_per_step_profiled": wall * 1e3 / reps,
           "device_ms_per_step": dev_us / 1e3 / reps,
           "ingest_kernel_device_ms_per_step": ours / 1e3 / reps,
+          "ingest_kernel_launches_per_step": ingest_launches / reps,
           "device_busy_share": dev_us / 1e6 / wall if dev_us else None,
           "device_kernels_per_step": sum(r[2] for r in rows) / reps,
           "top": [[k[:70], us / 1e3 / reps, n / reps]
@@ -445,6 +497,45 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def barrier_cost(dev, kernel, hr, M, norm) -> dict:
+    """What a frame costs the persistent ingest kernel beyond its pixels
+    at the main path's grid: one camera of ``BARRIER_N`` pixels for each
+    resident block (one 1024-pixel tile a block), timed at T=1 and at
+    T=1+16 frames. The difference over 16 is one grid barrier, the gain
+    reduction over all the camera's tiles and one near-empty tile a
+    block (the finalize pass does not grow with T here): an upper bound
+    on the barrier's cost. A timing probe only: its uniform-noise frames
+    put many pixels within rounding of the foreground threshold, so the
+    gain's summation order flips some of them (held to the plain version
+    in the kernel phase and the card tests, not here)."""
+    import torch
+    blocks = kernel.resident_blocks(dev)
+    n = blocks * BARRIER_N
+    rng = np.random.default_rng(6)
+    bg0 = torch.as_tensor(rng.uniform(0, 255, (1, n)).astype(np.float32),
+                          device=dev)
+    gain0 = torch.ones(1, device=dev)
+    ms, dev_ms = {}, {}
+    for t in (1, 1 + BARRIER_FRAMES):
+        rgb = torch.as_tensor(rng.uniform(0, 255, (1, t, n, 3))
+                              .astype(np.float32), device=dev)
+        args = (rgb, bg0, gain0, M, norm, hr)
+        ms[t] = cuda_ms(lambda: kernel.ingest_batch(*args), runs=20)
+        on_card = launch_ms(lambda: kernel.ingest_batch(*args))
+        dev_ms[t] = next((v for k, v in on_card.items()
+                          if "ingest_kernel" in k), None)
+        del rgb, args
+    d1, dn = dev_ms[1], dev_ms[1 + BARRIER_FRAMES]
+    return {"cameras": 1, "pixels": n,
+            "grid": kernel.work_plan(1, n, blocks).grid,
+            "ms_t1": ms[1], "ms_t17": ms[1 + BARRIER_FRAMES],
+            "device_ms_t1": d1, "device_ms_t17": dn,
+            "us_per_frame": (ms[1 + BARRIER_FRAMES] - ms[1])
+            / BARRIER_FRAMES * 1e3,
+            "device_us_per_frame": ((dn - d1) / BARRIER_FRAMES * 1e3
+                                    if d1 and dn else None)}
 
 
 def hist_phase(dev, frames, hr, nc, nb, N, kernel, ref) -> dict:

@@ -13,14 +13,23 @@ for a CPU tensor, and only then, it runs the plain PyTorch version from
 ``ref.py``. See the notes at the top of the CUDA sources for what bounds
 each kernel and how its design answers that.
 
+``ingest.cu`` is one persistent cooperative launch a call
+(``DEVICE_LAUNCHES_PER_CALL``): a grid of at most the blocks resident on
+the card walks (camera, pixel tile) items (``work_plan``), frame by frame
+with a grid barrier between frames for the lagged gain. RGB is streamed
+once through shared memory; the background lane carries an L2
+evict-last policy between frames.
+
 ``ingest_batch.launches`` and ``hsv_hist_batch.launches`` count the
-calls that launched each kernel (one ingest call is ``2*T + 2`` device
-launches; one histogram call is three with a bool mask, two with float
-weights; all on the current stream).
+calls that launched each kernel (one ingest call is one device launch;
+one histogram call is three with a bool mask, two with float weights;
+all on the current stream).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -34,7 +43,10 @@ from repro_torch.kernels.hsv_features.ref import (
 MAX_COLORS = 4
 MAX_RANGES = 2
 MAX_COUNTERS = 256
-TILE = 4096           # pixels per block of the frame launch
+TILE = 4096           # pixels per block of the histogram launch
+INGEST_THREADS = 256  # threads a block of the ingest kernel (THREADS)
+MIN_TILE = 4 * INGEST_THREADS   # least pixels of an ingest work item
+DEVICE_LAUNCHES_PER_CALL = 1    # device launches of one ingest_batch call
 
 
 class _Params(ctypes.Structure):
@@ -73,7 +85,11 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = kbuild.build()[name]
     if name == "ingest":
         fn = lib.ingest_batch_launch
-        fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 17
+        fn.argtypes = ([ctypes.POINTER(_Params), ctypes.c_int]
+                       + [ctypes.c_void_p] * 15)
+        lib.ingest_resident_blocks.argtypes = [ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int)]
+        lib.ingest_resident_blocks.restype = ctypes.c_int
     else:
         fn = lib.hsv_hist_launch
         fn.argtypes = [ctypes.POINTER(_HistParams)] + [ctypes.c_void_p] * 8
@@ -103,8 +119,65 @@ def _check_counters(nc: int, bs: int, bv: int) -> None:
                          f"kernels' {MAX_COUNTERS}")
 
 
+@dataclass(frozen=True)
+class WorkPlan:
+    """How one ingest call splits its pixels over the cooperative grid.
+
+    A work item is one camera's pixel tile: item ``it`` is camera
+    ``it // ntiles``, pixels ``[j * tile, min((j + 1) * tile, N))`` with
+    ``j = it % ntiles``. Block ``b`` takes items ``b, b + grid, ...`` on
+    every frame (the loop of ``ingest_kernel`` in csrc/ingest.cu), so each
+    thread meets the same pixels, and the same background, frame after
+    frame."""
+    cameras: int
+    pixels: int
+    tile: int          # pixels per item, a multiple of 4
+    ntiles: int        # items per camera
+    grid: int          # blocks launched: <= resident, <= items
+
+    def items(self, block: int) -> List[Tuple[int, int]]:
+        """The (camera, tile) items of ``block``, in the kernel's order."""
+        return [divmod(it, self.ntiles)
+                for it in range(block, self.cameras * self.ntiles, self.grid)]
+
+
+def work_plan(C: int, N: int, resident: int) -> WorkPlan:
+    """The plan for C cameras of N pixels on a card that holds
+    ``resident`` blocks of the kernel at once: about ``resident / C``
+    tiles a camera (one item a block), none under ``MIN_TILE`` pixels, so
+    a small call launches few blocks; more cameras than resident blocks
+    give each block several items."""
+    if min(C, N, resident) < 1:
+        raise ValueError(f"work_plan needs C, N, resident >= 1, got "
+                         f"{(C, N, resident)}")
+    per_cam = max(1, resident // C)
+    tile = max(MIN_TILE, -(-N // per_cam))
+    tile += -tile % 4
+    ntiles = -(-N // tile)
+    return WorkPlan(C, N, tile, ntiles, min(C * ntiles, resident))
+
+
+_RESIDENT: Dict[int, int] = {}
+
+
+def resident_blocks(device) -> int:
+    """Blocks of the ingest kernel resident on ``device`` at once
+    (occupancy x SMs), asked of the CUDA runtime once per process."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _RESIDENT:
+        out = ctypes.c_int(0)
+        err = _lib("ingest").ingest_resident_blocks(idx, ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"ingest kernel occupancy query failed: "
+                               f"cudaError {err}, {out.value} blocks")
+        _RESIDENT[idx] = out.value
+    return _RESIDENT[idx]
+
+
 def _params(C, T, N, hue_ranges, bs, bv, alpha, threshold, use_fg, bg_valid,
-            op, width) -> _Params:
+            op, width, tile) -> _Params:
     nc = len(hue_ranges)
     _check_counters(nc, bs, bv)
     if op not in ("or", "and"):
@@ -113,7 +186,7 @@ def _params(C, T, N, hue_ranges, bs, bv, alpha, threshold, use_fg, bg_valid,
                 sscale=bs / 256.0, vscale=bv / 256.0, alpha=alpha,
                 one_minus_alpha=1.0 - alpha, threshold=threshold,
                 use_fg=int(bool(use_fg)), bg_valid=int(bool(bg_valid)),
-                op_and=int(op == "and"), width=int(width), tile=TILE)
+                op_and=int(op == "and"), width=int(width), tile=tile)
     _hue_fields(p, hue_ranges)
     return p
 
@@ -171,31 +244,34 @@ def ingest_batch(rgb, bg0, gain0, M_pos, norm, hue_ranges,
     _check("bg0", bg0, (C, N))
     _check("M_pos", M_pos, (nc, nb))
     _check("norm", norm, (nc,))
+    plan = work_plan(C, N, resident_blocks(dev))
     params = _params(C, T, N, hue_ranges, bs, bv, alpha, threshold, use_fg,
-                     bg_valid, op, width)
+                     bg_valid, op, width, plan.tile)
     lib = _lib("ingest")
 
-    f32, i32 = torch.float32, torch.int32
-    counts = torch.empty((C, T, nc, nb), dtype=f32, device=dev)
-    totals = torch.empty((C, T, nc), dtype=f32, device=dev)
-    fgtot = torch.empty((C, T), dtype=f32, device=dev)
-    util = torch.empty((C, T), dtype=f32, device=dev)
-    bg = torch.empty((C, N), dtype=f32, device=dev)
-    gain = torch.empty((C,), dtype=f32, device=dev)
-    bbox = torch.empty((C, T, 4), dtype=i32, device=dev)
-    counts_i = torch.empty((C, T, nc, nb), dtype=i32, device=dev)
-    totals_i = torch.empty((C, T, nc), dtype=i32, device=dev)
-    fgtot_i = torch.empty((C, T), dtype=i32, device=dev)
-    ntiles = (N + TILE - 1) // TILE
-    partials = torch.empty((C, ntiles, 2), dtype=torch.float64, device=dev)
+    # three allocations: the float outputs (bg first, so that it is 16-byte
+    # aligned as the next call's bg0), the int32 bbox and accumulators
+    # (zeroed by the kernel), the double gain partials
+    f = torch.empty(C * N + C * T * (nc * nb + nc + 2) + C,
+                    dtype=torch.float32, device=dev)
+    bg, counts, totals, fgtot, util, gain = f.split(
+        [C * N, C * T * nc * nb, C * T * nc, C * T, C * T, C])
+    bg, counts, totals = bg.view(C, N), counts.view(C, T, nc, nb), \
+        totals.view(C, T, nc)
+    fgtot, util = fgtot.view(C, T), util.view(C, T)
+    ints = torch.empty(C * T * (4 + nc * nb + 1), dtype=torch.int32,
+                       device=dev)
+    bbox, acc = ints.split([C * T * 4, C * T * (nc * nb + 1)])
+    bbox = bbox.view(C, T, 4)
+    partials = torch.empty((C, T, plan.ntiles, 2), dtype=torch.float64,
+                           device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ingest_batch_launch(
-        ctypes.byref(params), rgb.data_ptr(), bg0.data_ptr(),
+        ctypes.byref(params), plan.grid, rgb.data_ptr(), bg0.data_ptr(),
         gain0.data_ptr(), M_pos.data_ptr(), norm.data_ptr(),
         counts.data_ptr(), totals.data_ptr(), fgtot.data_ptr(),
         util.data_ptr(), bg.data_ptr(), gain.data_ptr(), bbox.data_ptr(),
-        counts_i.data_ptr(), totals_i.data_ptr(), fgtot_i.data_ptr(),
-        partials.data_ptr(), stream)
+        acc.data_ptr(), partials.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CUDA ingest kernel launch failed: cudaError {err}")
     ingest_batch.launches += 1
@@ -437,4 +513,5 @@ OPS_PER_PIXEL = 29
 __all__ = ["ingest_batch", "hsv_hist", "hsv_hist_batch",
            "bytes_moved", "hist_bytes_moved", "compare_with_plain",
            "compare_hist_with_plain", "OPS_PER_PIXEL", "HIST_OPS_PER_PIXEL",
-           "TILE"]
+           "TILE", "DEVICE_LAUNCHES_PER_CALL", "WorkPlan", "work_plan",
+           "resident_blocks"]

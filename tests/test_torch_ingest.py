@@ -248,3 +248,45 @@ def test_compare_with_plain_tolerance(rng):
     slip[2] += 1
     with pytest.raises(AssertionError, match="frames"):
         check(slip)
+
+
+@pytest.mark.parametrize("resident", [1, 7, 132, 528, 1056])
+@pytest.mark.parametrize("C,N", [(1, 1), (1, 257), (2, 4097), (3, 300),
+                                 (8, 720 * 1280), (8, 720 * 1280 + 3),
+                                 (600, 300), (2000, 5)])
+def test_work_plan_covers_every_pixel_once(C, N, resident):
+    """The CUDA ingest kernel's partition (``kernel.WorkPlan``, the same
+    formula as ``ingest_kernel``'s item loop): every (camera, pixel) lies
+    in exactly one block's items, tiles are multiples of 4 pixels and no
+    smaller than ``MIN_TILE`` unless one tile holds the frame, the grid
+    fits the resident blocks and the work, and each block meets the same
+    items, in the same order, on every frame."""
+    plan = tkernel.work_plan(C, N, resident)
+    assert plan.tile % 4 == 0
+    assert plan.tile >= min(tkernel.MIN_TILE, N)
+    assert plan.ntiles == -(-N // plan.tile)
+    assert 1 <= plan.grid <= min(resident, C * plan.ntiles)
+    spans = {c: [] for c in range(C)}
+    frames = [[plan.items(b) for b in range(plan.grid)] for _ in range(3)]
+    assert all(f == frames[0] for f in frames)
+    for items in frames[0]:
+        assert len(items) <= -(-C * plan.ntiles // plan.grid)
+        for c, j in items:
+            spans[c].append((j * plan.tile, min((j + 1) * plan.tile, N)))
+    for c, s in spans.items():
+        s.sort()
+        assert s[0][0] == 0 and s[-1][1] == N, c
+        assert all(a[1] == b[0] for a, b in zip(s, s[1:])), c
+    if C * plan.ntiles <= resident:
+        assert all(len(items) == 1 for items in frames[0])
+
+
+def test_work_plan_serve_shape_and_small_calls():
+    """At the serve shape on a card holding 1056 blocks: one item a
+    block, 6984-pixel tiles; a 257-pixel call launches one block a
+    camera, not a thousand."""
+    plan = tkernel.work_plan(8, 720 * 1280, 1056)
+    assert (plan.tile, plan.ntiles, plan.grid) == (6984, 132, 1056)
+    assert tkernel.work_plan(2, 257, 1056).grid == 2
+    with pytest.raises(ValueError):
+        tkernel.work_plan(0, 10, 10)
