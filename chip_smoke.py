@@ -32,10 +32,21 @@ Phases, each printing one JSON line:
    device time and launches a step; a window with device events but no
    ingest kernel fails), then the control plane alone;
 6. hist — the CUDA ``hsv_hist_batch`` against its plain version at the
-   serve shape (64 frames of 720x1280, two colors), with the foreground
-   mask of ``data/background.py``'s ``batch_foreground`` as a bool mask
-   and as float 0/1 weights; then the staged entry point ``batch_pf``
-   over those frames (one kernel call) against the plain path;
+   serve shape (64 frames of 720x1280, two colors) in five cases
+   (``hist_weights``): the foreground mask of ``data/background.py``'s
+   ``batch_foreground`` (5.7 % foreground) as a bool mask and as float
+   0/1 weights (both exact), an all-true mask (exact), seeded uniform
+   (0, 1] weights (within ``HIST_FLOAT_RTOL``) and seeded dyadic weights
+   k/8 (exact: their sums are exact in float32); float cases called twice
+   and bit-identical; per case a call's ms, the kernel's device ms and
+   device launches a call (``torch.profiler``; one expected), the plain
+   version's ms, ``bound_ms`` from the bytes these weights need
+   (``kernel.hist_bytes_read``: the weights, the RGB sectors under
+   non-zero weights, the outputs) beside ``dense_bound_ms`` (every pixel
+   read, ``hist_bytes_moved``), achieved GB/s against both, and the
+   kernel's ptxas registers and spills; then the staged entry point
+   ``batch_pf`` over those frames (one kernel call) against the plain
+   path;
 7. service — ``ServeService.run`` (virtual clock, seeded mock backend,
    the launcher's coalescer settings) over a card session fitted as
    ``repro_torch.launch.serve`` fits one, 8 cameras x 48 frames of
@@ -145,6 +156,53 @@ def scenes(seed: int, n_frames: int):
     return rgb, labels
 
 
+def upsampler(small):
+    """``frames(t0, t1)``: frames t0..t1 of the (C, F, H, W, 3) card
+    tensor ``small``, upsampled x UP by nearest neighbour."""
+    def frames(t0: int, t1: int):
+        x = small[:, t0:t1].repeat_interleave(UP, dim=2)
+        return x.repeat_interleave(UP, dim=3).contiguous()
+    return frames
+
+
+def hist_inputs(dev, frames):
+    """The hist phase's (F, N, 3) frames and (F, N) bool foreground mask.
+
+    The mask is the foreground of the legacy host model (per-pixel EMA,
+    median gain) over each camera's last 2T frames, computed at 90x160
+    and upsampled like the frames: repeating every pixel UP*UP times
+    changes neither a per-pixel comparison nor a median, so this is the
+    mask of the 720x1280 frames."""
+    import torch
+    from repro_torch.core.colors import rgb_to_hsv_np
+    from repro_torch.data.background import batch_foreground
+    F, N = C * T, H * UP * W * UP
+    rgb = frames(TRAIN, TRAIN + T).reshape(F, N, 3)
+    small, _ = scenes(1000, TRAIN + T)
+    masks = np.stack([batch_foreground(rgb_to_hsv_np(small[c, TRAIN - T:]))
+                      [T:] for c in range(C)])                # (C, T, H, W)
+    fg = torch.as_tensor(masks, device=dev).repeat_interleave(
+        UP, dim=2).repeat_interleave(UP, dim=3).reshape(F, N).contiguous()
+    return rgb, fg
+
+
+def hist_weights(fg) -> dict:
+    """The hist phase's five weight cases over mask ``fg``: the mask as
+    bool and as float 0/1, an all-true mask, uniform (0, 1] weights, and
+    dyadic weights k/8, k in 1..8 (both seeded, made on the card). Every
+    sum of dyadic weights over a 720x1280 frame is a multiple of 1/8
+    below 2**21, exact in float32 in any order: the case that holds each
+    lane's own fractional weight to the counters exactly."""
+    import torch
+    gen = torch.Generator(device=fg.device).manual_seed(18)
+    uniform = 1.0 - torch.rand(fg.shape, generator=gen, device=fg.device)
+    dyadic = torch.randint(1, 9, fg.shape, generator=gen, device=fg.device,
+                           dtype=torch.int32).to(torch.float32) / 8.0
+    return {"bool": fg, "float": fg.to(torch.float32),
+            "bool_dense": torch.ones_like(fg), "float_dense": uniform,
+            "float_dyadic": dyadic}
+
+
 def cuda_ms(fn, runs: int = 7, warmup: int = 2) -> float:
     """Median over ``runs`` of one call timed by CUDA events."""
     import torch
@@ -165,13 +223,15 @@ def cuda_ms(fn, runs: int = 7, warmup: int = 2) -> float:
 EMPTY_PROFILER_SESSIONS = [0]    # sessions ``launch_ms`` had to try again
 
 
-def launch_ms(fn, runs: int = 5, sessions: int = 3) -> dict:
+def launch_ms(fn, runs: int = 5, sessions: int = 3,
+              counts: dict = None) -> dict:
     """Mean device time of one launch of each kernel that ``fn`` launches,
     from ``torch.profiler`` over ``runs`` calls after one warm-up call: a
     kernel's total over its own launch count, so a launch the profiler
     missed does not lower it. The profiler now and then delivers no device
     event for a whole session; such a session is tried again, up to
-    ``sessions`` in all, and ``{}`` means that none delivered any."""
+    ``sessions`` in all, and ``{}`` means that none delivered any. Given
+    ``counts``, it is filled with each kernel's launches a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -187,6 +247,10 @@ def launch_ms(fn, runs: int = 5, sessions: int = 3) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and (e.self_device_time_total or 0) > 0}
         if got:
+            if counts is not None:
+                counts.update({e.key: e.count / runs
+                               for e in prof.key_averages()
+                               if e.key in got})
             return got
         EMPTY_PROFILER_SESSIONS[0] += 1
     return {}
@@ -271,11 +335,7 @@ def main() -> int:
 
     # -- inputs: seeded scenes, upsampled on the card ------------------------
     rgb_small, labels = scenes(1000, TRAIN + STEPS * T)
-    small = torch.as_tensor(rgb_small, device=dev)
-
-    def frames(t0: int, t1: int) -> torch.Tensor:
-        x = small[:, t0:t1].repeat_interleave(UP, dim=2)
-        return x.repeat_interleave(UP, dim=3).contiguous()
+    frames = upsampler(torch.as_tensor(rgb_small, device=dev))
 
     q = Query.any_of("red", "yellow", latency_bound=1.0, fps=10.0)
     hr, nc, nb = q.hue_ranges, q.num_colors, q.bs * q.bv
@@ -485,6 +545,8 @@ def main() -> int:
         "launches": hist["launches"], "max_abs_err": hist["max_abs_err"],
         "ms": hist["ms"], "plain_ms": hist["plain_ms"],
         "bound_ms": hist["bound_ms"], "bound_by": hist["bound_by"],
+        "bound_of": "kernel.hist_bytes_read: the weights, the RGB sectors "
+                    "under non-zero weights, the outputs",
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
@@ -539,49 +601,71 @@ def barrier_cost(dev, kernel, hr, M, norm) -> dict:
 
 
 def hist_phase(dev, frames, hr, nc, nb, N, kernel, ref) -> dict:
-    """The histogram kernel against its plain version at the serve shape,
-    with a bool mask and with float 0/1 weights, then ``batch_pf`` (its
-    path: one kernel call for all frames) against the plain path."""
+    """The histogram kernel against its plain version at the serve shape
+    in the five cases of ``hist_weights``, then ``batch_pf`` (its path:
+    one kernel call for all frames) against the plain path."""
     import torch
-    from repro_torch.core.colors import COLORS, rgb_to_hsv_np
-    from repro_torch.data.background import batch_foreground
+    from repro_torch.core.colors import COLORS
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.hsv_features.ops import batch_pf
     from repro_torch.kernels.hsv_features.ref import pf_from_counts
 
     F = C * T
-    rgb = frames(TRAIN, TRAIN + T).reshape(F, N, 3)
-    # The foreground of the legacy host model (per-pixel EMA, median gain)
-    # over each camera's last 2T frames, computed at 90x160 and upsampled
-    # like the frames: repeating every pixel UP*UP times changes neither
-    # a per-pixel comparison nor a median, so this is the mask of the
-    # 720x1280 frames.
-    small, _ = scenes(1000, TRAIN + T)
-    masks = np.stack([batch_foreground(rgb_to_hsv_np(small[c, TRAIN - T:]))
-                      [T:] for c in range(C)])                # (C, T, H, W)
-    fg_small = torch.as_tensor(masks, device=dev)
-    fg = fg_small.repeat_interleave(UP, dim=2).repeat_interleave(
-        UP, dim=3).reshape(F, N).contiguous()
+    rgb, fg = hist_inputs(dev, frames)
+    usage = {("float" if "ILb1E" in e else "bool"): u
+             for e, u in kbuild.ptxas_usage(kbuild.BUILD.log).items()
+             if "hist_kernel" in e}
     out = {}
-    for label, w in (("bool", fg), ("float", fg.to(torch.float32))):
+    for label, w in hist_weights(fg).items():
         got = kernel.hsv_hist_batch(rgb, w, hr)
         torch.cuda.synchronize()
         want = ref.hsv_hist_ref(rgb, w, hr)
         rep = kernel.compare_hist_with_plain(got, want, w)
-        if rep["count_units_differing"] != 0:
+        if label != "float_dense" and rep["count_units_differing"] != 0:
             raise AssertionError(f"hsv_hist ({label}): "
                                  f"{rep['count_units_differing']} count "
                                  "units differ from the plain version")
+        if w.dtype == torch.float32:
+            again = kernel.hsv_hist_batch(rgb, w, hr)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"hsv_hist ({label}): two calls differ")
+            del again
         ms = cuda_ms(lambda: kernel.hsv_hist_batch(rgb, w, hr), runs=20)
+        per_call = {}
+        on_card = launch_ms(lambda: kernel.hsv_hist_batch(rgb, w, hr),
+                            counts=per_call)
+        mine = [t for k, t in on_card.items() if "hist_kernel" in k]
+        launches = sum(per_call.values()) if on_card else None
+        if on_card and (len(on_card) != 1 or len(mine) != 1
+                        or launches > kernel.HIST_DEVICE_LAUNCHES_PER_CALL):
+            raise AssertionError(f"hsv_hist ({label}): kernels on the card "
+                                 f"{per_call}")
+        dev_ms = mine[0] if mine else None
         plain_ms = cuda_ms(lambda: ref.hsv_hist_ref(rgb, w, hr), runs=3,
                            warmup=1)
-        nbytes = kernel.hist_bytes_moved(F, N, nc, nb, w.element_size())
-        ops = kernel.HIST_OPS_PER_PIXEL * F * N
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
+        nnz = int((w != 0).sum())
+        read = kernel.hist_bytes_read(w, nc, nb, rgb.data_ptr() % 32)
+        dense = kernel.hist_bytes_moved(F, N, nc, nb, w.element_size())
+        ops_ms = kernel.HIST_OPS_PER_PIXEL * nnz / F32_OPS_PER_S * 1e3
+        dense_ops_ms = kernel.HIST_OPS_PER_PIXEL * F * N / F32_OPS_PER_S * 1e3
+        bytes_ms = read / HBM_BYTES_PER_S * 1e3
+        dense_ms = dense / HBM_BYTES_PER_S * 1e3
         out[label] = dict(
-            rep, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            rep, ms=ms, device_ms=dev_ms, device_launches_per_call=launches,
+            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=nbytes, ops=ops, foreground_share=float(w.float().mean()))
+            dense_bound_ms=max(dense_ms, dense_ops_ms),
+            bytes_read=read, bytes_dense=dense,
+            ops=kernel.HIST_OPS_PER_PIXEL * nnz,
+            achieved_gb_per_s=read / ms / 1e6,
+            dense_equivalent_gb_per_s=dense / ms / 1e6,
+            device_gb_per_s=read / dev_ms / 1e6 if dev_ms else None,
+            device_dense_equivalent_gb_per_s=(dense / dev_ms / 1e6
+                                              if dev_ms else None),
+            foreground_share=nnz / (F * N),
+            ptxas=usage.get("float" if w.dtype == torch.float32 else "bool"),
+            empty_profiler_sessions=EMPTY_PROFILER_SESSIONS[0])
         if label == "bool":
             want_counts, want_totals, want_fgtot = want
         del got, want
@@ -603,7 +687,10 @@ def hist_phase(dev, frames, hr, nc, nb, N, kernel, ref) -> dict:
         raise AssertionError(f"batch_pf vs plain: pf {pf_err}, hf {hf_err}")
     if not (torch.isfinite(pf).all() and pf.shape == (F, 2, 8, 8)):
         raise AssertionError("batch_pf: bad PF matrices")
-    emit({"phase": "hist", "shape": [F, N, 3], **{
+    emit({"phase": "hist", "shape": [F, N, 3],
+          "plan": {"blocks_per_frame": kernel.hist_plan(
+              F, N, kernel.resident_blocks(dev, "hist")).blocks_per_frame,
+              "resident_blocks": kernel.resident_blocks(dev, "hist")}, **{
         f"{label}_{k}": v for label, r in out.items() for k, v in r.items()},
         "batch_pf_launches": launches, "batch_pf_pf_err": pf_err,
         "batch_pf_hf_err": hf_err})

@@ -153,19 +153,6 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 
 // --- per pixel ----------------------------------------------------------
 
-// The query's hue ranges as in_hue reads them, every color padded to
-// MAX_RANGES ranges with the empty range [0, 0): a padded range adds
-// "h >= 0 && h < 0", false for every h, to the OR, so in_hue answers as
-// on the parameters, while its loop has a fixed trip count (unrolled,
-// no branches) and reads shared memory instead of indexed constants.
-struct PaddedHues {
-    struct Ranges {              // n_ranges[k] == MAX_RANGES for every k
-        __device__ constexpr int operator[](int) const { return MAX_RANGES; }
-    } n_ranges;
-    float hue_lo[MAX_COLORS * MAX_RANGES];
-    float hue_hi[MAX_COLORS * MAX_RANGES];
-};
-
 struct Acc {                     // one thread's share of an item's frame
     double sv, sb;               // sum of Value, sum of background
     int fg;                      // foreground pixels
@@ -353,12 +340,7 @@ ingest_kernel(const __grid_constant__ IngestParams p,
     const uint64_t once = l2_policy_evict_first();
 
     // 1. zero the accumulators, open the bounding boxes; the hue table
-    if (threadIdx.x < MAX_COLORS * MAX_RANGES) {
-        const int q = threadIdx.x % MAX_RANGES, k = threadIdx.x / MAX_RANGES;
-        const bool real = k < p.nc && q < p.n_ranges[k];
-        s_hues.hue_lo[threadIdx.x] = real ? p.hue_lo[threadIdx.x] : 0.0f;
-        s_hues.hue_hi[threadIdx.x] = real ? p.hue_hi[threadIdx.x] : 0.0f;
-    }
+    fill_padded_hues(s_hues, p);
     {
         const long long nacc = nframes * (ncnt + 1);
         const long long n = nacc > nframes * 4 ? nacc : nframes * 4;

@@ -20,10 +20,16 @@ with a grid barrier between frames for the lagged gain. RGB is streamed
 once through shared memory; the background lane carries an L2
 evict-last policy between frames.
 
+``hist.cu`` is one launch a call (``HIST_DEVICE_LAUNCHES_PER_CALL``)
+for either weight type: ``hist_plan`` gives each frame a few blocks that
+share its pixel chunks; each thread reads its pixels' weights first and
+the RGB of the non-zero ones only (``hist_bytes_read`` counts those
+bytes); the frame's last block, found by a ticket, sums the blocks'
+partials in block order.
+
 ``ingest_batch.launches`` and ``hsv_hist_batch.launches`` count the
-calls that launched each kernel (one ingest call is one device launch;
-one histogram call is three with a bool mask, two with float weights;
-all on the current stream).
+calls that launched each kernel (one device launch a call each, on the
+current stream).
 """
 from __future__ import annotations
 
@@ -43,10 +49,12 @@ from repro_torch.kernels.hsv_features.ref import (
 MAX_COLORS = 4
 MAX_RANGES = 2
 MAX_COUNTERS = 256
-TILE = 4096           # pixels per block of the histogram launch
+HIST_CHUNK = 1024     # pixels a histogram block takes at a time (CHUNK)
+HIST_WAVES = 4        # histogram blocks a call, in resident grids
 INGEST_THREADS = 256  # threads a block of the ingest kernel (THREADS)
 MIN_TILE = 4 * INGEST_THREADS   # least pixels of an ingest work item
 DEVICE_LAUNCHES_PER_CALL = 1    # device launches of one ingest_batch call
+HIST_DEVICE_LAUNCHES_PER_CALL = 1   # ... of one hsv_hist_batch call
 
 
 class _Params(ctypes.Structure):
@@ -75,7 +83,7 @@ class _HistParams(ctypes.Structure):
         ("hue_lo", ctypes.c_float * (MAX_COLORS * MAX_RANGES)),
         ("hue_hi", ctypes.c_float * (MAX_COLORS * MAX_RANGES)),
         ("sscale", ctypes.c_float), ("vscale", ctypes.c_float),
-        ("tile", ctypes.c_int), ("float_weights", ctypes.c_int),
+        ("blocks_per_frame", ctypes.c_int), ("float_weights", ctypes.c_int),
     ]
 
 
@@ -87,13 +95,13 @@ def _lib(name: str) -> ctypes.CDLL:
         fn = lib.ingest_batch_launch
         fn.argtypes = ([ctypes.POINTER(_Params), ctypes.c_int]
                        + [ctypes.c_void_p] * 15)
-        lib.ingest_resident_blocks.argtypes = [ctypes.c_int,
-                                               ctypes.POINTER(ctypes.c_int)]
-        lib.ingest_resident_blocks.restype = ctypes.c_int
     else:
         fn = lib.hsv_hist_launch
         fn.argtypes = [ctypes.POINTER(_HistParams)] + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
+    occupancy = getattr(lib, f"{name}_resident_blocks")
+    occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -157,23 +165,81 @@ def work_plan(C: int, N: int, resident: int) -> WorkPlan:
     return WorkPlan(C, N, tile, ntiles, min(C * ntiles, resident))
 
 
-_RESIDENT: Dict[int, int] = {}
+_RESIDENT: Dict[Tuple[str, int], int] = {}
 
 
-def resident_blocks(device) -> int:
-    """Blocks of the ingest kernel resident on ``device`` at once
-    (occupancy x SMs), asked of the CUDA runtime once per process."""
+def _device_index(device) -> int:
     idx = torch.device(device).index
-    if idx is None:
-        idx = torch.cuda.current_device()
-    if idx not in _RESIDENT:
+    return torch.cuda.current_device() if idx is None else idx
+
+
+def resident_blocks(device, name: str = "ingest") -> int:
+    """Blocks of kernel library ``name``'s kernel ("ingest" or "hist")
+    resident on ``device`` at once (occupancy x SMs), asked of the CUDA
+    runtime once per process."""
+    key = (name, _device_index(device))
+    if key not in _RESIDENT:
         out = ctypes.c_int(0)
-        err = _lib("ingest").ingest_resident_blocks(idx, ctypes.byref(out))
+        err = getattr(_lib(name), f"{name}_resident_blocks")(
+            key[1], ctypes.byref(out))
         if err != 0 or out.value < 1:
-            raise RuntimeError(f"ingest kernel occupancy query failed: "
+            raise RuntimeError(f"{name} kernel occupancy query failed: "
                                f"cudaError {err}, {out.value} blocks")
-        _RESIDENT[idx] = out.value
-    return _RESIDENT[idx]
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
+@dataclass(frozen=True)
+class HistPlan:
+    """How one histogram call splits its pixels over blocks.
+
+    Frame ``t`` gets blocks ``t * G .. t * G + G - 1`` (``G =
+    blocks_per_frame``); block ``g`` of a frame takes the frame's
+    ``HIST_CHUNK``-pixel chunks ``g, g + G, ...`` (``chunks``), thread
+    ``x`` pixels ``4x .. 4x + 3`` of each (the loop of ``hist_kernel`` in
+    csrc/hist.cu). The plan, and so the order of every float sum, depends
+    on the shapes and the card's resident blocks alone."""
+    frames: int
+    pixels: int
+    nchunks: int           # chunks a frame
+    blocks_per_frame: int
+
+    def chunks(self, g: int) -> range:
+        return range(g, self.nchunks, self.blocks_per_frame)
+
+    def pixels_of(self, g: int, thread: int) -> List[int]:
+        """The pixels of one thread of block ``g`` of any frame, in order."""
+        q = 4 * thread
+        return [i for c in self.chunks(g)
+                for i in range(c * HIST_CHUNK + q, c * HIST_CHUNK + q + 4)
+                if i < self.pixels]
+
+
+def hist_plan(T: int, N: int, resident: int) -> HistPlan:
+    """About ``HIST_WAVES`` resident grids of blocks over all T frames,
+    at least one block a frame and at most one a chunk."""
+    if min(T, N, resident) < 1:
+        raise ValueError(f"hist_plan needs T, N, resident >= 1, got "
+                         f"{(T, N, resident)}")
+    nchunks = -(-N // HIST_CHUNK)
+    per_frame = HIST_WAVES * resident // T
+    return HistPlan(T, N, nchunks, max(1, min(per_frame, nchunks)))
+
+
+# The histogram kernel's frame tickets, one int32 a frame, per (device,
+# stream): zero when made and set back to zero by each frame's last block,
+# so every call finds them zero. Calls on one stream run in order; calls
+# on two streams use two scratches, so concurrent calls never share one.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(dev, stream: int, T: int) -> torch.Tensor:
+    key = (_device_index(dev), stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < T:
+        t = torch.zeros(max(T, 64), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
 
 
 def _params(C, T, N, hue_ranges, bs, bv, alpha, threshold, use_fg, bg_valid,
@@ -312,39 +378,33 @@ def hsv_hist_batch(rgb, fg, hue_ranges, bs: int = B_S, bv: int = B_V):
         raise ValueError(f"fg on {fg.device}, rgb on {rgb.device}")
     nc, nb = len(hue_ranges), bs * bv
     _check_counters(nc, bs, bv)
-    float_weights = fg.dtype == torch.float32
+    dev = rgb.device
+    G = hist_plan(T, N, resident_blocks(dev, "hist")).blocks_per_frame
     p = _HistParams(T=T, N=N, nc=nc, bs=bs, bv=bv, sscale=bs / 256.0,
-                    vscale=bv / 256.0, tile=TILE,
-                    float_weights=int(float_weights))
+                    vscale=bv / 256.0, blocks_per_frame=G,
+                    float_weights=int(fg.dtype == torch.float32))
     _hue_fields(p, hue_ranges)
     lib = _lib("hist")
 
-    dev = rgb.device
-    counts = torch.empty((T, nc, nb), dtype=torch.float32, device=dev)
-    totals = torch.empty((T, nc), dtype=torch.float32, device=dev)
-    fgtot = torch.empty((T,), dtype=torch.float32, device=dev)
-    nctr = nc * nb + nc + 1
-    if float_weights:
-        ntiles = (N + TILE - 1) // TILE
-        acc = None
-        partials = torch.empty((T, ntiles, nctr), dtype=torch.float32,
-                               device=dev)
-        weights = fg
-    else:
-        acc = torch.empty((T, nctr), dtype=torch.int32, device=dev)
-        partials = None
-        weights = fg.view(torch.uint8)
+    # one allocation for the outputs; the blocks' partials (int32 counts or
+    # float32 sums, written before they are read) beside it
+    out = torch.empty(T * (nc * nb + nc + 1), dtype=torch.float32,
+                      device=dev)
+    counts, totals, fgtot = out.split([T * nc * nb, T * nc, T])
+    partials = torch.empty(T * G * (nc * nb + 1), dtype=torch.int32,
+                           device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _tickets(dev, stream, T)
+    weights = fg if fg.dtype == torch.float32 else fg.view(torch.uint8)
     err = lib.hsv_hist_launch(
         ctypes.byref(p), rgb.data_ptr(), weights.data_ptr(),
         counts.data_ptr(), totals.data_ptr(), fgtot.data_ptr(),
-        None if acc is None else acc.data_ptr(),
-        None if partials is None else partials.data_ptr(), stream)
+        partials.data_ptr(), tickets.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CUDA hsv_hist kernel launch failed: cudaError "
                            f"{err}")
     hsv_hist_batch.launches += 1
-    return counts, totals, fgtot
+    return counts.view(T, nc, nb), totals.view(T, nc), fgtot
 
 
 hsv_hist_batch.launches = 0
@@ -493,9 +553,41 @@ def compare_hist_with_plain(got, want, fg) -> dict:
 
 def hist_bytes_moved(T: int, N: int, nc: int, nb: int,
                      weight_bytes: int) -> int:
-    """Least bytes one histogram call must move: RGB and the weights read
-    once, the float32 outputs written once."""
+    """Bytes one histogram call moves with every pixel read: RGB and the
+    weights read once, the float32 outputs written once (the dense bound;
+    ``hist_bytes_read`` is what a call's weights need)."""
     return int(T * N * (12 + weight_bytes) + T * (nc * nb + nc + 1) * 4)
+
+
+SECTOR = 32           # bytes of a DRAM sector, what a load fetches at least
+
+
+def hist_bytes_read(fg, nc: int, nb: int, rgb_offset: int = 0) -> int:
+    """Least bytes one histogram call must move for these weights: every
+    weight read once, every 32-byte sector of RGB that holds a pixel with
+    a non-zero weight (NaN counts as non-zero; -0.0 as zero) read once,
+    the float32 outputs written once. ``fg`` is the (T, N) mask or
+    weights; ``rgb_offset`` the RGB's address modulo 32 (``rgb.data_ptr()
+    % 32``), which places the sectors. Only the sectors' bytes inside the
+    RGB tensor count, so a dense mask gives ``hist_bytes_moved``."""
+    T, N = fg.shape
+    off = int(rgb_offset) % SECTOR
+    end = off + 12 * T * N                       # past the last RGB byte
+    idx = torch.nonzero(fg.reshape(-1) != 0).reshape(-1).to(torch.int64)
+    touched = torch.zeros(-(-end // SECTOR), dtype=torch.bool,
+                          device=fg.device)
+    start = off + 12 * idx                       # each pixel's first byte
+    touched[start // SECTOR] = True
+    touched[(start + 11) // SECTOR] = True
+    n = int(touched.sum())
+    # the first and last sectors lie partly outside the tensor
+    n_bytes = SECTOR * n
+    if bool(touched[0]):
+        n_bytes -= off
+    if bool(touched[-1]):
+        n_bytes -= touched.numel() * SECTOR - end
+    return int(T * N * fg.element_size() + n_bytes
+               + T * (nc * nb + nc + 1) * 4)
 
 
 # Float32 operations per pixel of the histogram kernel: HSV 12, joint bin
@@ -513,5 +605,6 @@ OPS_PER_PIXEL = 29
 __all__ = ["ingest_batch", "hsv_hist", "hsv_hist_batch",
            "bytes_moved", "hist_bytes_moved", "compare_with_plain",
            "compare_hist_with_plain", "OPS_PER_PIXEL", "HIST_OPS_PER_PIXEL",
-           "TILE", "DEVICE_LAUNCHES_PER_CALL", "WorkPlan", "work_plan",
-           "resident_blocks"]
+           "DEVICE_LAUNCHES_PER_CALL", "HIST_DEVICE_LAUNCHES_PER_CALL",
+           "HistPlan", "hist_plan", "hist_bytes_read", "WorkPlan",
+           "work_plan", "resident_blocks"]

@@ -13,8 +13,14 @@ and wider than the keys, key counts one off a tile multiple, bit-identical
 repeats and the refusal of views its cp.async cannot load.
 
 ``hsv_hist`` (``kernel.compare_hist_with_plain``): exact with a bool
-mask (int32 counters) and with 0/1 float weights; fractional float
+mask (int32 counters), with 0/1 float weights and with dyadic k/8
+weights (their sums are exact in float32); other fractional float
 weights within ``kernel.HIST_FLOAT_RTOL`` times the frame's weight sum.
+Also at the kernel's own edges: one device launch a call, empty, full
+and isolated-pixel masks, zero weights over NaN and inf RGB (skipped
+pixels add nothing), -0.0 weights, unaligned frames and views (scalar
+loads, bit-identical to an aligned copy), and calls on two streams at
+once (each stream has its own frame tickets).
 
 Tolerance (``kernel.compare_with_plain``): bg and gain at atol 1e-4 /
 rtol 1e-5; utility at that tolerance in every frame, widened only by what
@@ -216,6 +222,9 @@ def _hist(dev, T, n, nc, weights, seed=0, bs=8, bv=8):
     elif weights == "binary":
         fg = torch.as_tensor((rng.random((T, n)) < 0.6).astype(np.float32),
                              device=dev)
+    elif weights == "dyadic":
+        w = rng.integers(1, 9, (T, n)) / 8.0 * (rng.random((T, n)) < 0.6)
+        fg = torch.as_tensor(w.astype(np.float32), device=dev)
     else:
         fg = torch.as_tensor(rng.random((T, n)).astype(np.float32),
                              device=dev)
@@ -230,12 +239,15 @@ def _hist(dev, T, n, nc, weights, seed=0, bs=8, bv=8):
     return rep
 
 
-@pytest.mark.parametrize("weights", ["bool", "binary", "fractional"])
+@pytest.mark.parametrize("weights", ["bool", "binary", "fractional",
+                                     "dyadic"])
 @pytest.mark.parametrize("nc", [1, 2, 3, 4])
 @pytest.mark.parametrize("n", [17, 4096, 4097, 3 * 4096 + 100])
 def test_hist_ragged_colors_and_weights(weights, nc, n):
     """Pixel counts under, on and past the 4096-pixel tile, every
-    supported color count, bool masks and float weights."""
+    supported color count, bool masks and float weights. Dyadic weights
+    k/8 sum exactly in float32 in any order, so they are held exactly: a
+    lane's weight misplaced in the warp combine would show there."""
     dev = _card()
     _hist(dev, 3, n, nc, weights, seed=n + nc)
 
@@ -246,7 +258,7 @@ def test_hist_bin_sizes(bs, bv):
     _hist(dev, 2, 5000, 1, "bool", bs=bs, bv=bv)
 
 
-@pytest.mark.parametrize("weights", ["bool", "fractional"])
+@pytest.mark.parametrize("weights", ["bool", "fractional", "dyadic"])
 def test_hist_full_width(weights):
     """The hist phase's shape: 64 frames of 720x1280, two colors."""
     dev = _card()
@@ -264,6 +276,194 @@ def test_hist_single_frame_and_deterministic_float_sums():
     assert [tuple(o.shape) for o in one] == [(2, 64), (2,), ()]
     for a, b in zip(one, again):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _device_events(fn, calls):
+    """(kernel name, launches) of the device kernels of ``calls`` calls of
+    ``fn`` in one ``torch.profiler`` window, after a warm-up call. After
+    many earlier card tests in one process the profiler drops the first
+    device launch of every window, so the window opens with a marker
+    kernel (an in-place multiply) whose events are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    marker = torch.ones(1024, device=torch.cuda.current_device())
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        marker.mul_(1.0)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and (e.self_device_time_total or 0) > 0
+            and "elementwise" not in e.key]
+
+
+@pytest.mark.parametrize("weights", ["bool", "fractional"])
+def test_hist_one_device_launch_a_call(weights):
+    """Three profiled calls show exactly one device kernel, the histogram
+    kernel, launched three times: no memset, no second pass."""
+    dev = _card()
+    rng = np.random.default_rng(20)
+    rgb = torch.as_tensor(rng.uniform(0, 255, (8, 40000, 3))
+                          .astype(np.float32), device=dev)
+    fg = rng.random((8, 40000))
+    fg = torch.as_tensor(fg < 0.3 if weights == "bool"
+                         else fg.astype(np.float32), device=dev)
+    events = _device_events(lambda: kernel.hsv_hist_batch(rgb, fg, HR[:2]),
+                            calls=3)
+    assert len(events) == 1 and events[0][1] == 3, events
+    assert "hist_kernel" in events[0][0]
+    assert kernel.HIST_DEVICE_LAUNCHES_PER_CALL == 1
+
+
+def _hist_case(dev, rgb, fg, nc=2):
+    got = kernel.hsv_hist_batch(rgb, fg, HR[:nc])
+    torch.cuda.synchronize()
+    want = ref.hsv_hist_ref(rgb, fg, HR[:nc])
+    rep = kernel.compare_hist_with_plain(got, want, fg)
+    return got, want, rep
+
+
+@pytest.mark.parametrize("weights", ["bool", "binary", "dyadic"])
+@pytest.mark.parametrize("mask", ["empty", "full", "isolated", "blocks"])
+def test_hist_sparse_and_dense_masks(mask, weights):
+    """An all-zero mask (no RGB read: every output 0), an all-true mask,
+    isolated single pixels (the worst sector efficiency: one pixel of a
+    quad, of a warp) and 8x8-pixel blocks as the hist phase's mask has:
+    exact against the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    T, h, w = 5, 72, 128
+    rgb = torch.as_tensor(rng.uniform(0, 255, (T, h * w, 3))
+                          .astype(np.float32), device=dev)
+    m = np.zeros((T, h, w), bool)
+    if mask == "full":
+        m[:] = True
+    elif mask == "isolated":
+        m.reshape(T, -1)[:, rng.choice(h * w, 40, replace=False)] = True
+    elif mask == "blocks":
+        m = np.repeat(np.repeat(rng.random((T, h // 8, w // 8)) < 0.1, 8,
+                                axis=1), 8, axis=2)
+    fg = torch.as_tensor(m.reshape(T, -1), device=dev)
+    if weights == "binary":
+        fg = fg.float()
+    elif weights == "dyadic":
+        fg = fg * torch.as_tensor(rng.integers(1, 9, (T, h * w)) / 8.0,
+                                  dtype=torch.float32, device=dev)
+    got, _, rep = _hist_case(dev, rgb, fg)
+    assert rep["count_units_differing"] == 0
+    if mask == "empty":
+        assert all(not bool(o.any()) for o in got)
+
+
+@pytest.mark.parametrize("weights", ["bool", "binary", "fractional"])
+def test_hist_zero_weights_over_nan_and_inf_rgb(weights):
+    """Pixels under a zero weight hold NaN and +-inf RGB: the kernel
+    skips them, and the plain version, which multiplies each by its zero
+    weight, adds nothing for them either."""
+    dev = _card()
+    rng = np.random.default_rng(22)
+    T, n = 3, 9000
+    rgb = rng.uniform(0, 255, (T, n, 3)).astype(np.float32)
+    on = rng.random((T, n)) < 0.4
+    bad = np.array([np.nan, np.inf, -np.inf], np.float32)
+    rgb[~on] = bad[rng.integers(0, 3, (int((~on).sum()), 3))]
+    w = (on if weights == "bool" else on.astype(np.float32)
+         * (1.0 if weights == "binary" else rng.uniform(0.1, 1.0, (T, n))
+            .astype(np.float32)))
+    rgb_t = torch.as_tensor(rgb, device=dev)
+    fg = torch.as_tensor(w, device=dev)
+    got, want, rep = _hist_case(dev, rgb_t, fg)
+    assert all(bool(torch.isfinite(o).all()) for o in got + want)
+    if weights != "fractional":
+        assert rep["count_units_differing"] == 0
+
+
+def test_hist_negative_zero_weights():
+    """-0.0 weights are skipped like +0.0: the sums start at +0.0, so the
+    outputs equal those with +0.0 there bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng(23)
+    rgb = torch.as_tensor(rng.uniform(0, 255, (2, 5000, 3))
+                          .astype(np.float32), device=dev)
+    w = rng.random((2, 5000)).astype(np.float32)
+    w[w < 0.5] = 0.0
+    neg = np.where(w == 0.0, np.float32(-0.0), w)
+    assert np.signbit(neg).sum() > 0
+    a = kernel.hsv_hist_batch(rgb, torch.as_tensor(w, device=dev), HR[:2])
+    b = kernel.hsv_hist_batch(rgb, torch.as_tensor(neg, device=dev), HR[:2])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    kernel.compare_hist_with_plain(
+        b, ref.hsv_hist_ref(rgb, torch.as_tensor(neg, device=dev), HR[:2]),
+        torch.as_tensor(neg, device=dev))
+
+
+@pytest.mark.parametrize("weights", ["bool", "fractional"])
+@pytest.mark.parametrize("n", [1, 3, 4097, 720 * 1280 + 3])
+def test_hist_pixel_counts_not_multiple_of_four(n, weights):
+    """N % 4 != 0: frame 0 is 16-byte aligned (vector loads and a scalar
+    last quad), the frames after it are not (scalar loads throughout)."""
+    dev = _card()
+    _hist(dev, 3, n, 2, weights, seed=n)
+
+
+@pytest.mark.parametrize("weights", ["bool", "fractional"])
+def test_hist_unaligned_views_take_scalar_loads(weights):
+    """RGB and weights as views 4 bytes (one element) past a 16-byte
+    boundary take scalar loads with the same pixel-to-thread map, so the
+    outputs equal an aligned copy's bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng(24)
+    rgb = torch.as_tensor(rng.uniform(0, 255, (3, 8192, 3))
+                          .astype(np.float32), device=dev)
+    w = rng.random((3, 8192))
+    fg = torch.as_tensor(w < 0.5 if weights == "bool"
+                         else w.astype(np.float32), device=dev)
+    flat = torch.empty(rgb.numel() + 1, device=dev)
+    rgb_s = flat[1:].view(rgb.shape)
+    rgb_s.copy_(rgb)
+    fflat = torch.empty(fg.numel() + 1, dtype=fg.dtype, device=dev)
+    fg_s = fflat[1:].view(fg.shape)
+    fg_s.copy_(fg)
+    assert rgb_s.data_ptr() % 16 == 4
+    assert fg_s.data_ptr() % (4 * fg.element_size()) != 0
+    got = kernel.hsv_hist_batch(rgb_s, fg_s, HR[:2])
+    aligned = kernel.hsv_hist_batch(rgb, fg, HR[:2])
+    kernel.compare_hist_with_plain(got, ref.hsv_hist_ref(rgb, fg, HR[:2]),
+                                   fg)
+    for x, y in zip(got, aligned):
+        assert torch.equal(x, y)
+
+
+def test_hist_concurrent_calls_on_two_streams():
+    """Calls on two streams at once, each many frames deep, use their own
+    frame tickets: every call meets the plain version, and a stream's
+    repeats are bit-identical."""
+    dev = _card()
+    rng = np.random.default_rng(25)
+    rgb = [torch.as_tensor(rng.uniform(0, 255, (32, 50000, 3))
+                           .astype(np.float32), device=dev)
+           for _ in range(2)]
+    fg = [torch.as_tensor(rng.random((32, 50000)).astype(np.float32),
+                          device=dev),
+          torch.as_tensor(rng.random((32, 50000)) < 0.3, device=dev)]
+    want = [ref.hsv_hist_ref(r, f, HR[:2]) for r, f in zip(rgb, fg)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(4):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(kernel.hsv_hist_batch(rgb[i], fg[i], HR[:2]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            kernel.compare_hist_with_plain(got, want[i], fg[i])
+            for x, y in zip(got, outs[i][0]):
+                assert torch.equal(x, y)
 
 
 def test_hist_rejects_bad_inputs():
