@@ -80,9 +80,12 @@ Phases, each printing one JSON line:
    device time and ``library_device_ms`` SDPA's, from ``torch.profiler``
    (each of their kernels launches once a call; null where three
    profiler sessions in a row delivered no device event); each line
-   names the kernel that ran (``cuda_core_fp32``, or ``mma_bf16``, the
-   tensor-core kernel, with its registers and spills from the build
-   log), and a bf16 line its speed-up over the same case in float32;
+   names the kernel that ran (``cuda_core_fp32``, the CUDA-core kernel,
+   with its split count ``n_split`` and ``f32_bound_share``, the share of
+   its float32 CUDA-core bound that its device time reaches; or
+   ``mma_bf16``, the tensor-core kernel), each with its registers and
+   spills from the build log, and a bf16 line its speed-up over the same
+   case in float32;
 10. the ``kernels`` line, then the final ``{"ok": true, ...}`` line.
 
 Frames are seeded synthetic traffic scenes (``data/synthetic.py``) at
@@ -948,6 +951,7 @@ def flash_phase(dev, params) -> dict:
     from repro_torch.models.lm import embed_tokens
 
     mma_usage = fk.mma_kernel_usage(kbuild.BUILD.log)
+    f32_usage = fk.f32_kernel_usage(kbuild.BUILD.log)
     cfg = get_config(LM_ARCH)
     B, S = FLASH_A
     toks = torch.as_tensor(np.random.default_rng(4).integers(
@@ -1088,7 +1092,11 @@ def flash_phase(dev, params) -> dict:
             if dtype == torch.bfloat16:
                 path = dict(path="mma_bf16", ptxas=mma_usage.get(d))
             else:
-                path = dict(path="cuda_core_fp32")
+                plan = fk.flash_plan(Bq, Hq, Sq, Sk, d, c["causal"],
+                                     c["window"], fk.resident_blocks(dev, d))
+                path = dict(path="cuda_core_fp32", ptxas=f32_usage.get(d),
+                            n_split=plan.n_split, grid=plan.grid,
+                            resident_blocks=fk.resident_blocks(dev, d))
             rep = dict(
                 shape={"B": Bq, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
                        "d": d, "window": c["window"]},
@@ -1102,6 +1110,9 @@ def flash_phase(dev, params) -> dict:
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 f32_cuda_core_bound_ms=ops / F32_OPS_PER_S * 1e3,
+                f32_bound_share=(ops / F32_OPS_PER_S * 1e3 / mine[0]
+                                 if mine and dtype == torch.float32
+                                 else None),
                 bf16_tensor_core_bound_ms=ops / BF16_OPS_PER_S * 1e3,
                 ops=ops, bytes=nbytes, achieved_tflops=ops / ms / 1e9,
                 empty_profiler_sessions=EMPTY_PROFILER_SESSIONS[0])

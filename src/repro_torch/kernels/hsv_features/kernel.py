@@ -45,6 +45,7 @@ from repro_torch.kernels.hsv_features.ref import (
     hsv_hist_ref,
     ingest_batch_ref,
 )
+from repro_torch.kernels.scratch import device_index, tickets
 
 MAX_COLORS = 4
 MAX_RANGES = 2
@@ -168,16 +169,11 @@ def work_plan(C: int, N: int, resident: int) -> WorkPlan:
 _RESIDENT: Dict[Tuple[str, int], int] = {}
 
 
-def _device_index(device) -> int:
-    idx = torch.device(device).index
-    return torch.cuda.current_device() if idx is None else idx
-
-
 def resident_blocks(device, name: str = "ingest") -> int:
     """Blocks of kernel library ``name``'s kernel ("ingest" or "hist")
     resident on ``device`` at once (occupancy x SMs), asked of the CUDA
     runtime once per process."""
-    key = (name, _device_index(device))
+    key = (name, device_index(device))
     if key not in _RESIDENT:
         out = ctypes.c_int(0)
         err = getattr(_lib(name), f"{name}_resident_blocks")(
@@ -224,22 +220,6 @@ def hist_plan(T: int, N: int, resident: int) -> HistPlan:
     nchunks = -(-N // HIST_CHUNK)
     per_frame = HIST_WAVES * resident // T
     return HistPlan(T, N, nchunks, max(1, min(per_frame, nchunks)))
-
-
-# The histogram kernel's frame tickets, one int32 a frame, per (device,
-# stream): zero when made and set back to zero by each frame's last block,
-# so every call finds them zero. Calls on one stream run in order; calls
-# on two streams use two scratches, so concurrent calls never share one.
-_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _tickets(dev, stream: int, T: int) -> torch.Tensor:
-    key = (_device_index(dev), stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < T:
-        t = torch.zeros(max(T, 64), dtype=torch.int32, device=dev)
-        _TICKETS[key] = t
-    return t
 
 
 def _params(C, T, N, hue_ranges, bs, bv, alpha, threshold, use_fg, bg_valid,
@@ -394,12 +374,12 @@ def hsv_hist_batch(rgb, fg, hue_ranges, bs: int = B_S, bv: int = B_V):
     partials = torch.empty(T * G * (nc * nb + 1), dtype=torch.int32,
                            device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = _tickets(dev, stream, T)
+    frame_tickets = tickets(dev, stream, T)   # one a frame
     weights = fg if fg.dtype == torch.float32 else fg.view(torch.uint8)
     err = lib.hsv_hist_launch(
         ctypes.byref(p), rgb.data_ptr(), weights.data_ptr(),
         counts.data_ptr(), totals.data_ptr(), fgtot.data_ptr(),
-        partials.data_ptr(), tickets.data_ptr(), stream)
+        partials.data_ptr(), frame_tickets.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CUDA hsv_hist kernel launch failed: cudaError "
                            f"{err}")

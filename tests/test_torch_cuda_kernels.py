@@ -737,3 +737,147 @@ def test_flash_bf16_rejects_views_cp_async_cannot_load():
     with pytest.raises(ValueError, match="k's seq stride 65"):
         fkernel.flash_attention(q, odd, v, block_q=64, block_k=64)
     assert fkernel.flash_attention.launches == before
+
+
+def _f32_plan(q, k, causal, window):
+    B, Hq, Sq, d = q.shape
+    return fkernel.flash_plan(B, Hq, Sq, k.shape[2], d, causal, window,
+                              fkernel.resident_blocks(q.device, d))
+
+
+@pytest.mark.parametrize("Sq", [1, 64, 512])
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_f32_split_kv_at_the_tail_of_long_keys(Sq, window, d):
+    """1, 64 and 512 queries at the tail of 4096 keys: too few q tiles to
+    fill the card, so the keys are split over several blocks whose
+    partials the q tile's last block combines."""
+    dev = _card()
+    q, k, v = _qkv(dev, 2, 6, 2, Sq, 4096, d, torch.float32, seed=Sq + d)
+    assert _f32_plan(q, k, True, window).n_split > 1
+    _flash_vs_ref(q, k, v, causal=True, window=window, block_q=1,
+                  block_k=8)
+
+
+@pytest.mark.parametrize("d", fkernel.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_q_tiles_under_one_wave(d, causal):
+    """200 queries on 1000 keys, 4 heads on one KV head: fewer q tiles x
+    heads than one resident grid, causal and bidirectional."""
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 4, 1, 200, 1000, d, torch.float32, seed=d)
+    plan = _f32_plan(q, k, causal, None)
+    assert plan.tiles < fkernel.resident_blocks(dev, d)
+    assert plan.n_split > 1
+    _flash_vs_ref(q, k, v, causal=causal, window=None, block_q=8,
+                  block_k=8)
+
+
+@pytest.mark.parametrize("B,Sq,window", [(4, 2048, None), (2, 512, 300),
+                                          (2, 1, None)])
+def test_flash_f32_repeats_bit_identical(B, Sq, window):
+    """Unsplit (smollm's 4 x 2048, 9/3 heads) and split calls: the splits
+    are combined in split order, so two calls give the same bits."""
+    dev = _card()
+    q, k, v = _qkv(dev, B, 9, 3, Sq, 2048, 64, torch.float32, seed=Sq)
+    kw = dict(causal=True, window=window, block_q=1, block_k=8)
+    assert (_f32_plan(q, k, True, window).n_split > 1) == (Sq < 2048)
+    a = fkernel.flash_attention(q, k, v, **kw)
+    b = fkernel.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, attention_ref(q, k, v, causal=True,
+                                                window=window),
+                               atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("Sq", [2048, 64])
+def test_flash_f32_one_device_launch_a_call(Sq):
+    """Three profiled calls show one device kernel, the float32 kernel,
+    launched three times, split-KV (64 queries) included."""
+    dev = _card()
+    q, k, v = _qkv(dev, 2, 8, 2, Sq, 2048, 64, torch.float32, seed=3)
+    events = _device_events(
+        lambda: fkernel.flash_attention(q, k, v, block_q=64, block_k=64),
+        calls=3)
+    assert len(events) == 1 and events[0][1] == 3, events
+    assert "flash_kernel" in events[0][0]
+
+
+def test_flash_f32_rejects_views_cp_async_cannot_load():
+    """A float32 view one element off a 16-byte boundary, or with a seq
+    stride that is no multiple of 4 elements, raises before any launch."""
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 2, 1, 64, 64, 64, torch.float32)
+    flat = torch.zeros(q.numel() + 4, dtype=q.dtype, device=dev)
+    shifted = flat[1:1 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    odd = torch.zeros((1, 1, 64, 66), dtype=q.dtype, device=dev)[..., :64]
+    odd.copy_(v)
+    before = fkernel.flash_attention.launches
+    with pytest.raises(ValueError, match="q's data pointer"):
+        fkernel.flash_attention(shifted, k, v, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="v's seq stride 66"):
+        fkernel.flash_attention(q, k, odd, block_q=64, block_k=64)
+    assert fkernel.flash_attention.launches == before
+
+
+def test_flash_f32_kernels_do_not_spill():
+    """ptxas: every float32 instantiation keeps its micro-tiles in
+    registers (no spill), within its launch bounds."""
+    from repro_torch.kernels import build as kbuild
+    _card()
+    kbuild.build()
+    usage = fkernel.f32_kernel_usage(kbuild.BUILD.log)
+    assert sorted(usage) == list(fkernel.HEAD_DIMS), usage
+    for d, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (d, u)
+        per_sm = fkernel.F32_TILES[d][3]
+        assert u["registers"] <= 65536 // (fkernel.F32_THREADS * per_sm)
+
+
+def test_flash_f32_split_calls_on_two_streams():
+    """Split calls on two streams at once take tickets from two scratches:
+    each call meets the plain version and a stream's repeats are
+    bit-identical."""
+    dev = _card()
+    qkv = [_qkv(dev, 2, 8, 2, 64, 4096, 64, torch.float32, seed=s)
+           for s in (30, 31)]
+    assert all(_f32_plan(q, k, True, None).n_split > 1 for q, k, _ in qkv)
+    want = [attention_ref(q, k, v, causal=True) for q, k, v in qkv]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(4):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(fkernel.flash_attention(
+                    *qkv[i], block_q=64, block_k=64))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            torch.testing.assert_close(got, want[i], atol=2e-6, rtol=2e-6)
+            assert torch.equal(got, outs[i][0])
+
+
+def test_hist_and_flash_share_a_streams_tickets():
+    """The histogram kernel and the split flash kernel take their tickets
+    from one scratch a stream; each leaves them zero for the other."""
+    from repro_torch.kernels import scratch
+    dev = _card()
+    rng = np.random.default_rng(32)
+    rgb = torch.as_tensor(rng.uniform(0, 255, (16, 50000, 3))
+                          .astype(np.float32), device=dev)
+    fg = torch.as_tensor(rng.random((16, 50000)).astype(np.float32),
+                         device=dev)
+    q, k, v = _qkv(dev, 2, 8, 2, 1, 4096, 64, torch.float32, seed=32)
+    want_h = ref.hsv_hist_ref(rgb, fg, HR[:2])
+    want_f = attention_ref(q, k, v, causal=True)
+    for _ in range(3):
+        got_h = kernel.hsv_hist_batch(rgb, fg, HR[:2])
+        got_f = fkernel.flash_attention(q, k, v, block_q=1, block_k=8)
+        kernel.compare_hist_with_plain(got_h, want_h, fg)
+        torch.testing.assert_close(got_f, want_f, atol=2e-6, rtol=2e-6)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not scratch.tickets(dev, stream, 1).any()

@@ -206,7 +206,9 @@ def test_bf16_alignment_check_rejects_offset_and_odd_strides():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_params_carry_the_views_strides(dtype):
     """The wrapper hands the kernel every view's element strides as they
-    are (no copy) and its dtype flag; one packing for both kernels."""
+    are (no copy), its dtype flag and the float32 kernel's split count
+    with its scratch pointers (none when unsplit); one packing for both
+    kernels."""
     B, S, Hq, Hkv, d = 2, 128, 9, 3, 64
     q = torch.zeros((B, S, Hq, d), dtype=dtype).transpose(1, 2)
     k = torch.zeros((B, S, Hkv, d), dtype=dtype).transpose(1, 2)
@@ -221,3 +223,162 @@ def test_params_carry_the_views_strides(dtype):
         assert tuple(getattr(p, f"{name}_s{a}") for a in "bhs") == \
             t.stride()[:3]
     assert (p.q_sb, p.q_sh, p.q_ss) == (S * Hq * d, d, Hq * d)
+    assert (p.n_split, p.partials, p.tickets) == (1, None, None)
+    part = torch.empty(64, dtype=torch.float32)
+    tick = torch.zeros(8, dtype=torch.int32)
+    p = tkernel.pack_params(q, k, v, out, causal=False, window=None,
+                            scale=0.5, n_split=5,
+                            partials=part.data_ptr(),
+                            tickets=tick.data_ptr())
+    assert (p.n_split, p.partials, p.tickets) == \
+        (5, part.data_ptr(), tick.data_ptr())
+    assert (p.causal, p.has_window, p.window) == (0, 0, 0)
+
+
+def test_f32_alignment_check_takes_four_element_strides():
+    """Float32 rows are copied 4 elements at a time: bsnh views, fresh
+    tensors and a head stride of 68 pass; a base one float off a 16-byte
+    boundary and strides that are no multiple of 4 elements raise."""
+    B, S, H, d = 2, 48, 9, 64
+    q = torch.zeros((B, S, H, d))
+    tkernel.check_cp_async_alignment(q=q.transpose(1, 2),
+                                     k=torch.zeros((B, H, S, d)))
+    heads = torch.zeros((B, S, H, d + 4))[..., :d].transpose(1, 2)
+    tkernel.check_cp_async_alignment(q=heads)          # 68 % 4 == 0
+    with pytest.raises(ValueError, match="q's head stride 68 is not a "
+                                         "multiple of 8"):   # bf16: 8
+        tkernel.check_cp_async_alignment(q=torch.zeros(
+            (B, S, H, d + 4), dtype=torch.bfloat16)[..., :d].transpose(1, 2))
+    flat = torch.zeros(B * H * S * d + 4)
+    with pytest.raises(ValueError, match="v's data pointer"):
+        tkernel.check_cp_async_alignment(
+            v=flat[1:1 + B * H * S * d].view(B, H, S, d))
+    with pytest.raises(ValueError, match="k's seq stride 66 is not a "
+                                         "multiple of 4"):
+        tkernel.check_cp_async_alignment(
+            k=torch.zeros((B, H, S, d + 2))[..., :d])
+    with pytest.raises(ValueError, match="q's batch stride"):
+        tkernel.check_cp_async_alignment(q=torch.as_strided(
+            torch.zeros(2 * H * S * d + 2), (2, H, S, d),
+            (H * S * d + 2, S * d, d, 1)))
+    # one row of one head of one batch: no stride is stepped over
+    tkernel.check_cp_async_alignment(
+        q=torch.zeros((1, 1, 1, d + 2))[..., :d])
+
+
+def _visible_tiles(Sq, Sk, block_q, block_k, qt, causal, window):
+    """Brute force: the K tiles holding a key that some real query row of
+    q tile ``qt`` sees."""
+    rows = np.arange(qt * block_q, min(Sq, (qt + 1) * block_q))
+    qpos = rows[:, None] + Sk - Sq
+    kp = np.arange(Sk)[None, :]
+    see = np.ones((len(rows), Sk), bool)
+    if causal:
+        see = kp <= qpos
+        if window is not None:
+            see &= qpos - kp < window
+    return sorted({int(t) for t in np.nonzero(see.any(0))[0] // block_k})
+
+
+PLAN_CASES = [
+    # B, Hq, Sq, Sk, d, causal, window, resident
+    (2, 9, 512, 2048, 64, True, None, 264),     # chip_smoke (c) tail
+    (2, 9, 2048, 2048, 64, True, None, 264),    # (c) padded
+    (4, 9, 2048, 2048, 64, True, None, 264),    # (a): a long grid
+    (1, 16, 4096, 4096, 256, True, 1024, 132),  # (b): a long grid
+    (2, 6, 1, 4096, 64, True, 300, 264),        # one query, windowed
+    (1, 4, 200, 1000, 32, False, None, 264),    # bidirectional, ragged
+    (1, 4, 200, 1000, 128, True, 50, 264),
+    (1, 2, 256, 192, 64, True, None, 264),      # Sq > Sk: rows see nothing
+    (3, 5, 64, 4096, 256, True, 4000, 132),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_flash_plan_covers_every_visible_k_tile_once(case):
+    """The float32 kernel's block map (``FlashPlan.block``) gives every
+    (q tile, head, batch) its ``n_split`` splits, whose contiguous K-tile
+    ranges, in split order, are exactly the K tiles its mask lets through;
+    q tiles run heaviest (last) first."""
+    B, Hq, Sq, Sk, d, causal, window, resident = case
+    plan = tkernel.flash_plan(B, Hq, Sq, Sk, d, causal, window, resident)
+    assert (plan.block_q, plan.block_k) == tkernel.f32_tiles(d)
+    seen = {}
+    order = []
+    for x in range(plan.grid):
+        qt, s, h, b = plan.block(x)
+        assert 0 <= qt < plan.n_qtiles and 0 <= h < Hq and 0 <= b < B
+        seen.setdefault((qt, h, b), []).append((s, plan.split_tiles(qt, s)))
+        order.append(qt)
+    assert len(seen) == plan.tiles == plan.n_qtiles * Hq * B
+    assert order == sorted(order, reverse=True)
+    for (qt, h, b), splits in seen.items():
+        assert [s for s, _ in splits] == list(range(plan.n_split))
+        tiles = [t for _, r in splits for t in r]
+        assert tiles == list(plan.k_tiles(qt))
+        assert tiles == _visible_tiles(Sq, Sk, plan.block_q, plan.block_k,
+                                       qt, causal, window)
+    if plan.n_split > 1:
+        assert plan.partial_floats == \
+            plan.grid * plan.block_q * (d + 2)
+
+
+def test_flash_plan_splits_short_grids_only():
+    """One block a q tile where the q tiles x heads x batch fill
+    ``FLASH_SPLIT_WAVES`` resident grids; otherwise enough splits for
+    that, at most ``MAX_SPLIT`` and at most the K tiles a q tile sees."""
+    plan = tkernel.flash_plan
+    assert plan(4, 9, 2048, 2048, 64, True, None, 264).n_split == 1
+    assert plan(1, 16, 4096, 4096, 256, True, 1024, 132).n_split == 1
+    assert plan(4, 9, 2048, 2048, 64, True, None, 264).partial_floats == 0
+    tail = plan(2, 9, 512, 2048, 64, True, None, 264)
+    assert tail.tiles == 72 and tail.n_split == -(-2 * 264 // 72)
+    assert plan(1, 1, 1, 4096, 64, True, None, 264).n_split == \
+        tkernel.MAX_SPLIT
+    assert plan(1, 1, 1, 128, 64, True, None, 264).n_split == 2   # 2 tiles
+    assert plan(1, 1, 1, 0, 64, True, None, 264).n_split == 1     # no keys
+    with pytest.raises(ValueError):
+        plan(1, 1, 1, 64, 48, True, None, 264)
+
+
+def test_f32_tiles_mirror_the_kernel_source():
+    """``F32_TILES`` is flash.cu's ``Tiles<HD>`` table, entry for entry:
+    the wrapper sizes the split scratch from it."""
+    import re
+    from pathlib import Path
+    src = (Path(tkernel.__file__).parent / "csrc" / "flash.cu").read_text()
+    table = {int(m[0]): tuple(int(x) for x in m[1:]) for m in re.findall(
+        r"struct Tiles<(\d+)> : TileShape<(\d+), (\d+), (\d+), (\d+)>",
+        src)}
+    assert table == tkernel.F32_TILES
+    assert sorted(table) == list(tkernel.HEAD_DIMS)
+    assert "constexpr int THREADS = 256;" in src
+    assert tkernel.F32_THREADS == 256
+
+
+F32_PTXAS = """== flash_attention/csrc/flash.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelILi64EEEv11FlashParamsPKfS3_S3_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelILi64EEEv11FlashParamsPKfS3_S3_Pf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers, 4 bytes smem, 536 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelILi256EEEv11FlashParamsPKfS3_S3_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelILi256EEEv11FlashParamsPKfS3_S3_Pf
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 4 bytes smem, 536 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN9flash_mma14flash_mma_bf16ILi64ELi64ELi3EEEv11FlashParamsPK13__nv_bfloat16S4_S4_PS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_mma14flash_mma_bf16ILi64ELi64ELi3EEEv11FlashParamsPK13__nv_bfloat16S4_S4_PS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 107 registers, used 1 barriers, 536 bytes cmem[0]
+"""
+
+
+def test_f32_kernel_usage_reads_the_ptxas_report():
+    """The float32 kernel's registers and spills per head dim, with its
+    tiles; the bf16 kernel's entries are left to ``mma_kernel_usage``."""
+    assert tkernel.f32_kernel_usage(F32_PTXAS) == {
+        64: dict(block_q=128, block_k=64, registers=122, spill_stores=0,
+                 spill_loads=0),
+        256: dict(block_q=64, block_k=64, registers=255, spill_stores=4,
+                  spill_loads=8)}
+    assert list(tkernel.mma_kernel_usage(F32_PTXAS)) == [64]
+    assert tkernel.f32_kernel_usage("") == {}
