@@ -31,6 +31,22 @@ Phases, each printing one JSON line:
 5. profile — a profiled window of serve steps (the ingest kernel's
    device time and launches a step; a window with device events but no
    ingest kernel fails), then the control plane alone;
+5b. cascade — the two-stage semantic cascade (``repro_torch.cascade``)
+   at the serve shape: ``fit_scorer`` on the card over three seeded
+   training scenes of 48 frames (bboxes from the fused ingest's bbox
+   instantiation), the scorer's checkpoint round trip, the card scorer
+   against the same weights on the CPU over 64 frames at
+   ``CASC_SCORE_TOL``; then a cascade session (``MLPScorer`` at its
+   defaults, ``gate_fraction`` 0.5) for 10 ticked ``step(frames)`` calls
+   (each launching the ingest kernel's bbox instantiation), held bit for
+   bit to a CPU session replaying the card's utilities and stage-2
+   scores; a checkpoint after step 5 restored into a card session
+   (stepping the same frames) and a CPU session (replaying), both
+   bit-identical to the live session; both gates must shed; the step's
+   median beside the single-stage serve step's, and its parts (the
+   ingest call and its device time, phase A with the survivors' index,
+   the survivors' gather, the scorer, phase B with the tick); one
+   profiled step must show the ingest kernel;
 6. hist — the CUDA ``hsv_hist_batch`` against its plain version at the
    serve shape (64 frames of 720x1280, two colors) in five cases
    (``hist_weights``): the foreground mask of ``data/background.py``'s
@@ -140,6 +156,14 @@ FLASH_F64_HELD = {("a_smollm_layer0", "float32")}
 FLASH_F32_SLACK = 2.0
 # the ingest barrier probe: one 1024-pixel tile per resident block
 BARRIER_N, BARRIER_FRAMES = 1024, 16
+# cascade phase: the scorer is fit on CASC_SCENES seeded scenes of
+# CASC_FRAMES frames (720x1280 after upsampling); the serve run's backend
+# latencies make Eq. 19's rate 0.375-0.75, split at CASC_GATE between the
+# color gate and the scorer, so both gates shed; the session is
+# checkpointed after step CASC_CKPT_STEP; card scores are held to the
+# CPU's at CASC_SCORE_TOL
+CASC_SCENES, CASC_FRAMES, CASC_GATE = 3, 48, 0.5
+CASC_LATENCY, CASC_CKPT_STEP, CASC_SCORE_TOL = (0.02, 0.05), 5, 1e-5
 
 
 def emit(obj) -> None:
@@ -527,6 +551,8 @@ def main() -> int:
           "control_only_step_ms": sorted(control)})
 
     del sess, replay
+    casc = cascade_phase(dev, kernel, q, frames, labels,
+                         float(np.median(step_ms)))
     hist = hist_phase(dev, frames, hr, nc, nb, N, kernel, ref)
     service_phase(dev, kernel, state_from_numpy)
     params = lm_phase(dev)
@@ -541,6 +567,8 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": main["max_abs_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "launches_by_path": {"serve": main_launches,
+                             "cascade": casc["ingest_launches_on_path"]},
         "library_ms": None}, {
         "name": "hsv_hist", "route": "cuda",
         "source": "src/repro_torch/kernels/hsv_features/csrc/hist.cu",
@@ -800,6 +828,244 @@ def service_phase(dev, kernel, state_from_numpy) -> None:
           "e2e_virtual_p50_s": float(np.percentile(lat, 50)),
           "e2e_virtual_p99_s": float(np.percentile(lat, 99)),
           "cpu_offer_batch_replay_equal": True})
+
+
+def cascade_phase(dev, kernel, q, frames, labels, serve_ms: float) -> dict:
+    """The two-stage semantic cascade on the card at the serve shape:
+    ``fit_scorer`` on three upsampled training scenes, a scorer
+    checkpoint round trip, the card scorer against the same weights on
+    the CPU, ten ticked ``step(frames)`` calls of a cascade session held
+    to a CPU replay given the card's utilities and stage-2 scores, a
+    checkpoint after step 5 restored into a card and a CPU session that
+    must continue bit-identically, and the step's times and parts."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cascade import Cascade, MLPScorer, fit_scorer
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import open_session
+    from repro_torch.core import session as S
+    from repro_torch.data.synthetic import generate_scenario
+    from repro_torch.kernels.hsv_features.ops import ingest_pipeline
+
+    h, w = H * UP, W * UP
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("cascade: float32 products must stay float32")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cascade_")
+    # 1. fit on the card, then the scorer's checkpoint round trip
+    train = [Upsampled(generate_scenario(3000 + s, num_frames=CASC_FRAMES,
+                                         height=H, width=W,
+                                         vehicle_rate=0.12))
+             for s in range(CASC_SCENES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer, metrics = fit_scorer(train, q.colors, op=q.op, device=dev,
+                                 checkpoint_dir=Path(tmp.name) / "scorer")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    del train
+    back = MLPScorer.from_checkpoint(Path(tmp.name) / "scorer", device=dev)
+    if not all(torch.equal(back.params[k], scorer.params[k])
+               for k in scorer.params):
+        raise AssertionError("cascade: scorer checkpoint round trip differs")
+    if not metrics["loss_final"] < metrics["loss_first"]:
+        raise AssertionError(f"cascade: the fit did not learn {metrics}")
+    scorer = back
+    cpu_scorer = MLPScorer(params={k: v.cpu() for k, v in
+                                   scorer.params.items()},
+                           roi_size=scorer.roi_size)
+
+    # 2. card scorer vs the same weights on the CPU, 64 frames
+    batch = frames(TRAIN, TRAIN + T)
+    bbox = ingest_pipeline(batch, q.colors, None, with_bbox=True)[4]
+    flat, fbox = batch.reshape(C * T, h, w, 3), bbox.reshape(C * T, 4)
+    on_card = scorer.score(flat, fbox).cpu()
+    on_cpu = cpu_scorer.score(flat.cpu(), fbox.cpu())
+    scorer_err = float((on_card - on_cpu).abs().max())
+    if not scorer_err <= CASC_SCORE_TOL:
+        raise AssertionError(f"cascade: card scorer off the CPU's by "
+                             f"{scorer_err}")
+    del flat, on_card, on_cpu
+
+    # 3. serve: a card cascade session, a CPU replay, a checkpoint
+    def session(device, model=None, scr=scorer):
+        return open_session(q, C, frame_shape=(h, w), device=device,
+                            model=model,
+                            cascade=Cascade(scr, gate_fraction=CASC_GATE))
+
+    sess = session(dev)
+    pfs = [sess.ingest(frames(b, b + T)).pf for b in range(0, TRAIN, T)]
+    pf = np.concatenate(pfs, axis=1).reshape(C * TRAIN, q.num_colors, q.bs,
+                                             q.bv)
+    sess.fit(pf, labels[:, :TRAIN].reshape(-1))
+    replay = session("cpu", sess.model, cpu_scorer)
+    replay.load_state(state_from_numpy(sess.state.as_dict(), "cpu"))
+    restored = {}
+    Wc = sess.state.cdf_buf.shape[1]
+    lat_rng = np.random.default_rng(2)
+    step_ms, launches = [], []
+
+    def same(a, b):
+        return (np.array_equal(a.decisions, b.decisions)
+                and np.array_equal(a.pushed_seq, b.pushed_seq)
+                and np.array_equal(a.target_drop_rate, b.target_drop_rate)
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a.evicted, b.evicted)))
+
+    def lanes(s):
+        return [s.state.as_dict()[k] for k in ("threshold", "s2_threshold",
+                                               "q_util", "q_seq")]
+
+    kernel.ingest_batch.launches = 0
+    for i in range(STEPS):
+        batch = frames(TRAIN + i * T, TRAIN + (i + 1) * T)
+        lat = float(lat_rng.uniform(*CASC_LATENCY))
+        pos = sess.state.cdf_pos.cpu().numpy()
+        torch.cuda.synchronize()
+        before = kernel.ingest_batch.launches
+        t0 = time.perf_counter()
+        sess.report_backend_latency(lat)
+        res = sess.step(batch, tick=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(kernel.ingest_batch.launches - before)
+        if launches[-1] < 1:
+            raise AssertionError(f"cascade step {i}: no ingest launch")
+        idx = (pos[:, None] + np.arange(T)[None, :]) % Wc
+        util = np.take_along_axis(sess.state.cdf_buf.cpu().numpy(), idx, 1)
+        s2 = res.s2_scores
+        if not (np.isfinite(util).all() and np.isfinite(s2).all()
+                and s2.shape == (C, T)):
+            raise AssertionError(f"cascade step {i}: bad utilities/scores")
+        replay.report_backend_latency(lat)
+        rr = replay.step(utilities=util, s2_utilities=s2, tick=True)
+        if not (same(rr, res) and all(np.array_equal(a, b) for a, b in
+                                      zip(lanes(replay), lanes(sess)))):
+            raise AssertionError(f"cascade step {i}: card and CPU replay "
+                                 "differ")
+        for name, r in restored.items():
+            r.report_backend_latency(lat)
+            got = (r.step(batch, tick=True) if name == "card" else
+                   r.step(utilities=util, s2_utilities=s2, tick=True))
+            if not (same(got, res) and all(
+                    np.array_equal(a, b) for a, b in zip(lanes(r),
+                                                         lanes(sess)))):
+                raise AssertionError(f"cascade step {i}: the {name} session "
+                                     "restored at step 5 differs")
+            if name == "card" and not np.array_equal(got.s2_scores, s2):
+                raise AssertionError(f"cascade step {i}: restored card "
+                                     "scores differ")
+        out = sess.next_frames(K_SEND)
+        if replay.next_frames(K_SEND) != out:
+            raise AssertionError(f"cascade step {i}: pops differ")
+        if restored and (restored["card"].next_frames(K_SEND)
+                         != restored["cpu"].next_frames(K_SEND)):
+            raise AssertionError(f"cascade step {i}: restored pops differ")
+        if i == CASC_CKPT_STEP - 1:
+            sess.checkpoint(Path(tmp.name) / "session", step=i + 1)
+            for name, device in (("card", dev), ("cpu", "cpu")):
+                r = session(device, scr=scorer if device == dev
+                            else cpu_scorer)
+                r.restore(Path(tmp.name) / "session")
+                restored[name] = r
+    path_launches = kernel.ingest_batch.launches
+    counts = dict(offered=sess.stats.offered,
+                  shed_color=sess.stats.dropped_admission,
+                  shed_semantic=sess.stats.dropped_cascade,
+                  shed_queue=sess.stats.dropped_queue, sent=sess.stats.sent)
+    if not (counts["shed_color"] and counts["shed_semantic"]):
+        raise AssertionError(f"cascade: a gate shed nothing {counts}")
+
+    # 4. where a step's time goes: its parts, one at a time
+    st = sess.state
+    M_pos, norm, op = sess._model_constants()
+    rgb = batch.reshape(C, T, h * w, 3)
+
+    def ingest():
+        return kernel.ingest_batch(rgb, st.bg, st.gain, M_pos, norm,
+                                   q.hue_ranges, op=op, width=w)
+
+    ingest_ms = cuda_ms(ingest, runs=10)
+    ingest_dev = [v for k, v in launch_ms(ingest).items()
+                  if "ingest_kernel" in k]
+    out = ingest()
+    util_t, bbox = out[3], out[6]
+    del out
+    ones = torch.ones((C, T), dtype=torch.bool, device=dev)
+    _, pass1 = S._cascade_admit(st, util_t, ones, update_cdf=True,
+                                tick_cfg=sess._tick_cfg)
+    r, t = torch.nonzero(pass1, as_tuple=True)
+    gather_ms = cuda_ms(lambda: batch[r, t], runs=10)
+    survivors = batch[r, t]
+    scorer_ms = cuda_ms(lambda: scorer.score(survivors, bbox[r, t]),
+                        runs=10)
+    del survivors
+    s2_t = torch.zeros((C, T), device=dev)
+    kw = dict(do_tick=True, min_proc=sess.min_proc, budget=sess._budget,
+              gate_fraction=sess._gate_fraction,
+              num_total=sess.num_active, tick_cfg=sess._tick_cfg)
+
+    def host_ms(fn, runs=10):
+        fn()
+        ts = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    admit_ms = host_ms(lambda: torch.nonzero(S._cascade_admit(
+        st, util_t, ones, update_cdf=True, tick_cfg=sess._tick_cfg)[1]))
+    finish_ms = host_ms(lambda: S._cascade_finish_core(
+        st, s2_t, ones, pass1, **kw)[1]["decisions"].cpu())
+    # one profiled step: the ingest kernel must be among its device events
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.step(batch, tick=True)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and (e.self_device_time_total or 0) > 0]
+    ing = [x for x in rows if "ingest_kernel" in x[0]]
+    if rows and not ing:
+        raise AssertionError(f"cascade profile: device events but no ingest "
+                             f"kernel ({[x[0][:40] for x in rows[:12]]})")
+    result = {
+        "phase": "cascade", "cameras": C, "frames_per_step": T,
+        "frame_shape": [h, w], "steps": STEPS,
+        "gate_fraction": CASC_GATE, "roi_size": scorer.roi_size,
+        "hidden": int(scorer.params["b1"].shape[0]),
+        "fit_seconds": fit_s, "fit": metrics,
+        "scorer_card_vs_cpu_max_abs": scorer_err,
+        "scorer_tol": CASC_SCORE_TOL, **counts,
+        "step_ms": [round(x, 3) for x in step_ms],
+        "step_ms_median": float(np.median(step_ms)),
+        "serve_step_ms_median": serve_ms,
+        "ingest_launches_per_step": launches,
+        "ingest_launches_on_path": path_launches,
+        "parts_ms": {
+            "ingest_bbox_call": ingest_ms,
+            "ingest_bbox_device": ingest_dev[0] if ingest_dev else None,
+            "admit_and_survivor_index": admit_ms,
+            "survivor_gather": gather_ms,
+            "scorer": scorer_ms,
+            "finish_and_tick": finish_ms},
+        "survivors": int(r.numel()),
+        "profiled_step": {
+            "device_ms": sum(x[2] for x in rows) / 1e3,
+            "device_kernels": sum(x[1] for x in rows),
+            "ingest_device_ms": sum(x[2] for x in ing) / 1e3,
+            "ingest_launches": sum(x[1] for x in ing)},
+        "cpu_replay_bit_identical": True,
+        "checkpoint_at_step": CASC_CKPT_STEP,
+        "restored_card_and_cpu_bit_identical": True}
+    emit(result)
+    tmp.cleanup()
+    return result
 
 
 def lm_phase(dev):

@@ -3,11 +3,13 @@ NumPy arrays.
 
 The reference package exposes its utility model as arrays
 (``UtilityModel.M_pos``/``M_neg``/``norm``/``op``), its session state
-as ``SessionState.as_dict()`` — ``{leaf name: np.ndarray}`` — and its
-language model's parameters as a pytree of arrays. These functions build
-the port's objects from exactly those arrays, so a reference and a port
-object can start from the same trained model, state or weights. They
-take NumPy only.
+as ``SessionState.as_dict()`` — ``{leaf name: np.ndarray}`` — its
+language model's parameters as a pytree of arrays and its cascade
+scorer's as ``MLPScorer.params`` (``w1``/``b1``/``w2``/``b2``). These
+functions build the port's objects from exactly those arrays, so a
+reference and a port object can start from the same trained model,
+state or weights. They take NumPy only. (A checkpoint file is the second
+route: both packages write and read the same format.)
 """
 from __future__ import annotations
 
@@ -77,4 +79,19 @@ def lm_params_from_numpy(tree, device: DeviceLike = None):
     return torch.as_tensor(np.array(tree), device=dev)
 
 
-__all__ = ["lm_params_from_numpy", "model_from_numpy", "state_from_numpy"]
+def scorer_params_from_numpy(params: Dict[str, np.ndarray],
+                             device: DeviceLike = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The port's ``MLPScorer`` parameters from the reference scorer's
+    ``params`` as NumPy arrays (``{k: np.asarray(v)}``): float32 tensors
+    on ``device``, for ``MLPScorer(params=..., roi_size=...)``."""
+    dev = resolve_device(device)
+    missing = {"w1", "b1", "w2", "b2"} - set(params)
+    if missing:
+        raise ValueError(f"scorer params lack {sorted(missing)}")
+    return {k: torch.as_tensor(np.array(params[k], np.float32), device=dev)
+            for k in ("w1", "b1", "w2", "b2")}
+
+
+__all__ = ["lm_params_from_numpy", "model_from_numpy",
+           "scorer_params_from_numpy", "state_from_numpy"]

@@ -13,6 +13,8 @@ from repro_torch.core.utility import (
     B_V,
     UtilityModel,
     batch_utilities,
+    frame_features,
+    hue_fraction,
     pixel_fraction_matrix,
     train_utility_model,
 )
@@ -35,8 +37,8 @@ __all__ = [
     "ControlLoop", "LatencyInputs",
     "drop_rate", "overall_qor", "per_object_qor",
     "UtilityQueue", "LoadShedder", "ShedderStats", "UtilityCDF",
-    "B_S", "B_V", "UtilityModel", "batch_utilities",
-    "pixel_fraction_matrix", "train_utility_model",
+    "B_S", "B_V", "UtilityModel", "batch_utilities", "frame_features",
+    "hue_fraction", "pixel_fraction_matrix", "train_utility_model",
     "IngestResult", "Query", "SessionState", "ShedSession", "StepResult",
     "open_session",
 ]

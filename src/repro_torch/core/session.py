@@ -27,12 +27,27 @@ per-camera tensor lanes, one fused ingest per camera batch.
     time or coalesced; ``next_frame``/``next_frames`` are transmission
     control; ``lane``/``attach_camera``/``detach_camera`` map external
     camera ids onto lanes of a live session (camera churn) and
-    ``set_rate_floor`` is the degraded-mode floor under Eq. 19.
+    ``set_rate_floor`` is the degraded-mode floor under Eq. 19;
+    ``checkpoint``/``restore`` persist the state lanes, the trained model
+    and the camera-id map in the reference's checkpoint format (a file
+    restores in either package).
+
+With ``cascade=Cascade(scorer, ...)`` (``repro_torch.cascade``) a frames
+step is the two-stage shedder: the fused ingest also yields each frame's
+foreground bbox, a stage-1 color gate keeps the frames above its
+threshold, ONE batched scorer call scores the survivors' bbox crops, and
+a stage-2 gate on those scores precedes queue insertion (queues then
+ordered by the semantic score); the tick splits Eq. 19's rate between
+the two gates.
 
 The control plane is one torch implementation that runs on whichever
 device the session has; on the CPU its results are bit-identical to the
 reference's NumPy ``serve="host"`` twin (the tests hold it to that), and
-on the card to this same code on the CPU.
+on the card to this same code on the CPU. The reference's ``serve=``,
+``impl=`` and ``interpret=`` keywords are accepted and change nothing
+(there is one control plane, and the ingest kernel is chosen by the
+device); camera sharding (``mesh=``, ``shard_cameras=True``,
+``fleet_aggregate=True``) raises ``NotImplementedError``.
 
 ``open_session(query, num_cameras, ...)`` is the entry point.
 """
@@ -71,12 +86,15 @@ from repro_torch.kernels.hsv_features.ops import (
 )
 
 # decision codes — (C, T) int8 arrays, vectorized per camera
+# (offer_batch marks padding slots that carried no frame with -1)
 ADMIT = 0
 SHED_ADMISSION = 1
 SHED_QUEUE = 2
+SHED_CASCADE = 3     # passed the color gate, shed by the stage-2 scorer
 
 _DECISION_NAMES = {ADMIT: "queued", SHED_ADMISSION: "shed_admission",
-                   SHED_QUEUE: "shed_queue"}
+                   SHED_QUEUE: "shed_queue", SHED_CASCADE: "shed_cascade"}
+
 
 
 class TickConfig(NamedTuple):
@@ -86,12 +104,17 @@ class TickConfig(NamedTuple):
     sort; ``exact=False`` (the default) uses the O(bins) cumsum over the
     incrementally maintained ``(C, bins)`` count histograms, whose
     threshold is within one bucket width above the exact one for
-    in-range utilities. Counts are maintained either way.
+    in-range utilities. Counts are maintained either way. ``lo``/
+    ``width``/``inv_width`` are the stage-1 utility buckets, ``s2_*`` the
+    cascade scorer's.
     """
     exact: bool = False
     lo: float = 0.0
     width: float = 1.0 / 256.0
     inv_width: float = 256.0
+    s2_lo: float = -1.0
+    s2_width: float = 2.0 / 256.0
+    s2_inv_width: float = 128.0
 
 
 DEFAULT_TICK_CONFIG = TickConfig()
@@ -176,9 +199,12 @@ class SessionState:
         utility-ordered queues as array lanes (empty slots ``(-inf, -1)``).
       * ``active (C,)`` masks detached camera lanes (threshold +inf,
         excluded from Eq. 19) and ``rate_floor (C,)`` is the degraded-mode
-        floor under every lane's target drop rate; the ``s2_*`` lanes are
-        carried so that a reference state maps one to one and stay
-        untouched (the cascade is not ported).
+        floor under every lane's target drop rate.
+      * ``s2_buf (C, W2)`` / ``s2_len`` / ``s2_pos`` / ``s2_counts (C, B)``
+        / ``s2_threshold (C,)`` — the semantic cascade's stage-2 score
+        ring, bucket counts and shed thresholds, the same machinery as
+        the stage-1 CDF over the scores of frames that passed the color
+        gate; untouched by a session without ``cascade=``.
     """
     bg: torch.Tensor          # (C, N) float32
     gain: torch.Tensor        # (C,) float32
@@ -276,11 +302,15 @@ class StepResult:
     *previously queued* frames dropped this step (push evictions of
     residents plus tick resizes). ``target_drop_rate``: (C,) float32
     Eq. 19 rates when the step re-derived thresholds, else None.
+    ``s2_scores``: (C, T) float32 stage-2 scores when the step ran the
+    semantic cascade (0 for frames the color gate shed before the scorer
+    saw them), else None.
     """
     decisions: np.ndarray
     pushed_seq: np.ndarray
     evicted: List[np.ndarray]
     target_drop_rate: Optional[np.ndarray] = None
+    s2_scores: Optional[np.ndarray] = None
 
 
 # ---------------------------------------------------------------------------
@@ -347,37 +377,69 @@ def _tick_core(state: SessionState, min_proc: float, budget: float,
                tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
     """Eq. 18–20 re-derivation: target rates from the metric lanes,
     thresholds via the O(bins) bucket cumsum (or ONE batched (C, W) sort
-    under ``tick_cfg.exact``), queue caps + resize.
-
-    Outside ``exact`` mode the resize leaves the lanes as they are when
-    no lane holds more entries than its new cap (the reference host
-    tick's no-eviction fast path, kept here without a host sync), so the
-    physical lane layout stays bit-identical to that twin.
-    """
+    under ``tick_cfg.exact``), queue caps + resize."""
     C = num_total if num_total is not None else state.threshold.shape[0]
     p, rates = _eq19_rates(state, min_proc, C)
-    if tick_cfg.exact:
-        threshold = thresholds_from_lanes_dev(state.cdf_buf, state.cdf_len,
-                                              rates)
-    else:
-        threshold = thresholds_from_counts_dev(
-            state.cdf_counts, state.cdf_len, rates, tick_cfg.lo,
-            tick_cfg.width)
-    threshold = torch.where(state.active, threshold, float("inf"))
+    threshold = _stage_thresholds(state.cdf_buf, state.cdf_len,
+                                  state.cdf_counts, rates, tick_cfg.exact,
+                                  tick_cfg.lo, tick_cfg.width)
+    state = dataclasses.replace(
+        state, threshold=torch.where(state.active, threshold, float("inf")))
+    state, resize_ev = _resize_queues(state, p, budget, tick_cfg.exact)
+    return state, rates, resize_ev
+
+
+def _stage_thresholds(buf, ln, counts, rates, exact: bool, lo: float,
+                      width: float):
+    """Eq. 17 thresholds of one ring at ``rates``: the full (C, W) sort
+    under ``exact``, else the O(bins) cumsum over its bucket counts."""
+    if exact:
+        return thresholds_from_lanes_dev(buf, ln, rates)
+    return thresholds_from_counts_dev(counts, ln, rates, lo, width)
+
+
+def _resize_queues(state: SessionState, p, budget: float, exact: bool):
+    """Eq. 20 queue caps from the latency lanes ``p`` and the queue
+    resize. Outside ``exact`` mode the lanes stay as they are when no
+    lane holds more entries than its new cap (the reference host tick's
+    no-eviction fast path, kept here without a host sync), so the
+    physical lane layout stays bit-identical to that twin."""
     cap = torch.clamp_min(
         (torch.full_like(p, budget) / p + 1e-9).to(torch.int32) - 1, 1)
     q_util, q_seq, resize_ev = sq.resize_dev(state.q_util, state.q_seq, cap)
-    if not tick_cfg.exact:
+    if not exact:
         K = state.q_seq.shape[1]
         occ = (state.q_seq >= 0).sum(dim=1)
         keep = ~(occ > torch.clamp(cap, 1, K)).any()
         q_util = torch.where(keep, state.q_util, q_util)
         q_seq = torch.where(keep, state.q_seq, q_seq)
         resize_ev = torch.where(keep, -1, resize_ev).to(torch.int32)
-    state = dataclasses.replace(
-        state, threshold=threshold.to(torch.float32),
-        queue_cap=cap.to(torch.int32), q_util=q_util, q_seq=q_seq)
-    return state, rates, resize_ev
+    state = dataclasses.replace(state, queue_cap=cap.to(torch.int32),
+                                q_util=q_util, q_seq=q_seq)
+    return state, resize_ev
+
+
+def _queue_insert(state: SessionState, util, admit, decisions):
+    """Push the admitted entries of a (C, T) batch into the queue lanes
+    keyed by ``util``, and flip this batch's frames that the push evicted
+    to ``SHED_QUEUE`` (a scatter-max: evicted slots were ``ADMIT`` = 0 and
+    the dummy writes are -1). Returns (state', outputs-dict)."""
+    q_util, q_seq, q_next, pushed_seq, ev_s, ev_b = sq.push_batch_dev(
+        state.q_util, state.q_seq, state.q_next_seq, util, admit,
+        state.queue_cap)
+    flip = ev_b >= 0
+    decisions = decisions.scatter_reduce(
+        1, torch.where(flip, ev_b, 0).to(torch.int64),
+        torch.where(flip, SHED_QUEUE, -1).to(torch.int32),
+        reduce="amax").to(torch.int8)
+    state = dataclasses.replace(state, q_util=q_util, q_seq=q_seq,
+                                q_next_seq=q_next)
+    return state, {
+        "decisions": decisions,
+        "pushed_seq": pushed_seq,
+        "evicted_resident": torch.where((ev_b < 0) & (ev_s >= 0), ev_s, -1),
+        "push_evictions": (ev_s >= 0).sum(dim=-1).to(torch.int32),
+    }
 
 
 def _control_core(state: SessionState, util, present=None, *,
@@ -402,25 +464,10 @@ def _control_core(state: SessionState, util, present=None, *,
     decisions = torch.where(admit, ADMIT, SHED_ADMISSION).to(torch.int32)
     if present is not None:
         decisions = torch.where(present, decisions, -1)
-    q_util, q_seq, q_next, pushed_seq, ev_s, ev_b = sq.push_batch_dev(
-        state.q_util, state.q_seq, state.q_next_seq, util, admit,
-        state.queue_cap)
-    # retroactive SHED_QUEUE flips for this batch's evicted frames: a
-    # scatter-max (codes are 0 <= 1 <= 2, dummy writes use -1 = no-op)
-    flip = ev_b >= 0
-    decisions = decisions.scatter_reduce(
-        1, torch.where(flip, ev_b, 0).to(torch.int64),
-        torch.where(flip, SHED_QUEUE, -1).to(torch.int32),
-        reduce="amax").to(torch.int8)
     state = dataclasses.replace(
         state, cdf_buf=cdf_buf, cdf_pos=cdf_pos, cdf_len=cdf_len,
-        cdf_counts=cdf_counts, q_util=q_util, q_seq=q_seq, q_next_seq=q_next)
-    out = {
-        "decisions": decisions,
-        "pushed_seq": pushed_seq,
-        "evicted_resident": torch.where((ev_b < 0) & (ev_s >= 0), ev_s, -1),
-        "push_evictions": (ev_s >= 0).sum(dim=-1).to(torch.int32),
-    }
+        cdf_counts=cdf_counts)
+    state, out = _queue_insert(state, util, admit, decisions)
     if do_tick:
         state, rates, resize_ev = _tick_core(state, min_proc, budget,
                                              num_total, tick_cfg)
@@ -429,23 +476,119 @@ def _control_core(state: SessionState, util, present=None, *,
     return state, out
 
 
-def _serve_step(state: SessionState, frames, M_pos, norm, *, hue_ranges, bs,
-                bv, alpha, fg_threshold, use_fg, bg_valid, op, update_cdf,
-                do_tick, min_proc, budget, num_total=None,
-                tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
-    """The serve step: fused ingest (the CUDA kernel on a CUDA state) ->
-    CDF push -> admission -> queue selection -> threshold/queue-size
-    control, all launched on the state's device without a host round
-    trip of the utilities."""
+# ---------------------------------------------------------------------------
+# Semantic-cascade cores: the reference host twins' arithmetic in torch,
+# split around the scorer call: phase A (stage-1 CDF push + color gate)
+# -> scorer on the survivors -> phase B (stage-2 ring push + gate + queue
+# insertion + optional two-threshold tick). The single-stage cores above
+# share their queue and resize helpers and nothing else, so cascade-off
+# sessions stay bit-identical.
+# ---------------------------------------------------------------------------
+
+def _cascade_rates(rates, gate_fraction: float):
+    """Split the Eq. 19 combined target drop rate r into the stage-1
+    share r1 = g*r and the stage-2 CONDITIONAL share r2 = (r-r1)/(1-r1)
+    (of the survivors), float32 as the reference computes them, so
+    r1 + (1-r1)*r2 tracks r and the degraded floor (already folded into
+    ``rates``) bounds the combined rate."""
+    def f32(x):
+        return torch.tensor(np.float32(x), device=rates.device)
+    r1 = rates * f32(gate_fraction)
+    r2 = (rates - r1) / torch.maximum(1.0 - r1, f32(1e-9))
+    return r1, r2
+
+
+def _cascade_tick_core(state: SessionState, min_proc: float, budget: float,
+                       gate_fraction: float, num_total: Optional[int] = None,
+                       tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
+    """Two-threshold tick: the combined Eq. 18–20 rate (floor and churn
+    mask applied first, as in ``_tick_core``) is split across the stages;
+    each stage's threshold comes from ITS ring at ITS share, through the
+    same bucket machinery (the s2 geometry covers the scorer's range)."""
+    C = num_total if num_total is not None else state.threshold.shape[0]
+    p, rates = _eq19_rates(state, min_proc, C)
+    r1, r2 = _cascade_rates(rates, gate_fraction)
+    threshold = _stage_thresholds(state.cdf_buf, state.cdf_len,
+                                  state.cdf_counts, r1, tick_cfg.exact,
+                                  tick_cfg.lo, tick_cfg.width)
+    s2_threshold = _stage_thresholds(state.s2_buf, state.s2_len,
+                                     state.s2_counts, r2, tick_cfg.exact,
+                                     tick_cfg.s2_lo, tick_cfg.s2_width)
+    state = dataclasses.replace(
+        state,
+        threshold=torch.where(state.active, threshold, float("inf")),
+        s2_threshold=torch.where(state.active, s2_threshold, float("inf")))
+    state, resize_ev = _resize_queues(state, p, budget, tick_cfg.exact)
+    return state, rates, resize_ev
+
+
+def _cascade_admit(state: SessionState, util, present, *, update_cdf: bool,
+                   tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
+    """Cascade phase A: stage-1 CDF push + color gate. Returns (state',
+    pass1 (C, T) bool — the frames the scorer sees)."""
+    util = util.to(torch.float32)
+    if update_cdf:
+        buf, pos, ln, counts = _ring_push(
+            state.cdf_buf, state.cdf_pos, state.cdf_len, state.cdf_counts,
+            util, tick_cfg.lo, tick_cfg.inv_width, present)
+        state = dataclasses.replace(state, cdf_buf=buf, cdf_pos=pos,
+                                    cdf_len=ln, cdf_counts=counts)
+    return state, present & ~(util < state.threshold[:, None])
+
+
+def _cascade_finish_core(state: SessionState, s2, present, pass1, *,
+                         do_tick: bool, min_proc: float, budget: float,
+                         gate_fraction: float,
+                         num_total: Optional[int] = None,
+                         tick_cfg: TickConfig = DEFAULT_TICK_CONFIG):
+    """Cascade phase B: stage-2 ring push (survivors only) -> stage-2
+    gate -> queue insertion keyed by the SEMANTIC score -> (optional)
+    two-threshold tick. Returns (state', outputs-dict)."""
+    s2 = s2.to(torch.float32)
+    buf, pos, ln, counts = _ring_push(
+        state.s2_buf, state.s2_pos, state.s2_len, state.s2_counts, s2,
+        tick_cfg.s2_lo, tick_cfg.s2_inv_width, pass1)
+    admit = pass1 & ~(s2 < state.s2_threshold[:, None])
+    decisions = torch.where(admit, ADMIT,
+                            torch.where(pass1, SHED_CASCADE, SHED_ADMISSION))
+    decisions = torch.where(present, decisions, -1).to(torch.int32)
+    state = dataclasses.replace(state, s2_buf=buf, s2_pos=pos, s2_len=ln,
+                                s2_counts=counts)
+    state, out = _queue_insert(state, s2, admit, decisions)
+    if do_tick:
+        state, rates, resize_ev = _cascade_tick_core(
+            state, min_proc, budget, gate_fraction, num_total, tick_cfg)
+        out["rates"] = rates
+        out["resize_evicted"] = resize_ev
+    return state, out
+
+
+def _fused_ingest(state: SessionState, frames, M_pos, norm, *, hue_ranges,
+                  bs, bv, alpha, fg_threshold, use_fg, bg_valid, op,
+                  width: int = 0):
+    """Fused ingest of (C, T, N, 3) frames (the CUDA kernel on a CUDA
+    state) carrying the state's background lanes. Returns (state',
+    utilities (C, T), and with ``width > 0`` the (C, T, 4) foreground
+    bboxes, else None)."""
     bg0 = state.bg if bg_valid else torch.zeros_like(state.bg)
     gain0 = state.gain if bg_valid else torch.ones_like(state.gain)
-    _, _, _, util, bg, gain = ingest_core(
+    res = ingest_core(
         frames, bg0, gain0, M_pos, norm, hue_ranges=hue_ranges, bs=bs,
         bv=bv, alpha=alpha, threshold=fg_threshold, use_fg=use_fg,
-        bg_valid=bg_valid, op=op)
+        bg_valid=bg_valid, op=op, width=width)
     state = dataclasses.replace(
-        state, bg=bg, gain=gain,
+        state, bg=res[4], gain=res[5],
         bg_valid=torch.tensor(True, device=state.device))
+    return state, res[3], (res[6] if width else None)
+
+
+def _serve_step(state: SessionState, frames, M_pos, norm, *, update_cdf,
+                do_tick, min_proc, budget, num_total=None,
+                tick_cfg: TickConfig = DEFAULT_TICK_CONFIG, **ingest_kw):
+    """The serve step: fused ingest -> CDF push -> admission -> queue
+    selection -> threshold/queue-size control, all launched on the
+    state's device without a host round trip of the utilities."""
+    state, util, _ = _fused_ingest(state, frames, M_pos, norm, **ingest_kw)
     return _control_core(state, util, update_cdf=update_cdf, do_tick=do_tick,
                          min_proc=min_proc, budget=budget,
                          num_total=num_total, tick_cfg=tick_cfg)
@@ -469,16 +612,39 @@ class ShedSession:
                  ewma_alpha: float = 0.2, ewma_alpha_up: float = 0.6,
                  min_proc: float = 1e-6,
                  update_cdf_online: bool = True,
+                 impl: Optional[str] = None,
+                 interpret: Optional[bool] = None,
+                 serve: Optional[str] = None,
+                 mesh: Optional[Any] = None,
+                 shard_cameras: Optional[bool] = None,
+                 fleet_aggregate: bool = False,
+                 cascade: Optional[Any] = None,
                  exact_tick: bool = False,
                  quantile_bins: int = 256,
                  quantile_range: Tuple[float, float] = (0.0, 1.0),
+                 s2_quantile_range: Tuple[float, float] = (-1.0, 1.0),
                  device: DeviceLike = None) -> None:
         if num_cameras < 1:
             raise ValueError("num_cameras must be >= 1")
+        if mesh is not None or shard_cameras or fleet_aggregate:
+            raise NotImplementedError(
+                "camera sharding (mesh=, shard_cameras=True, "
+                "fleet_aggregate=True) is not ported yet: ROADMAP.md "
+                "Queue 1 item 9")
+        if serve not in (None, "host", "device"):
+            raise ValueError(f"unknown serve impl {serve!r}")
         self.device = resolve_device(device)
         self.query = query
         self.num_cameras = int(num_cameras)
         self.model = model
+        # semantic cascade (repro_torch.cascade.Cascade, duck-typed:
+        # .scorer / .gate_fraction / .window) — strictly opt-in; None
+        # leaves every decision bit-identical to the single-stage pipeline
+        self.cascade = cascade
+        self._gate_fraction = (float(getattr(cascade, "gate_fraction", 0.5))
+                               if cascade is not None else 0.5)
+        s2_window = (int(getattr(cascade, "window", 1024))
+                     if cascade is not None else 64)
         self.latency_inputs = latency_inputs or LatencyInputs()
         self.ewma_alpha = float(ewma_alpha)
         self.ewma_alpha_up = float(ewma_alpha_up)
@@ -488,19 +654,21 @@ class ShedSession:
         if bins < 2:
             raise ValueError(f"quantile_bins {bins} must be >= 2")
         qlo, qhi = float(quantile_range[0]), float(quantile_range[1])
-        if not qhi > qlo:
+        s2lo, s2hi = float(s2_quantile_range[0]), float(s2_quantile_range[1])
+        if not (qhi > qlo and s2hi > s2lo):
             raise ValueError("quantile ranges must satisfy hi > lo")
         self.exact_tick = bool(exact_tick)
         self.quantile_bins = bins
         self._tick_cfg = TickConfig(
             exact=self.exact_tick, lo=qlo, width=(qhi - qlo) / bins,
-            inv_width=bins / (qhi - qlo))
+            inv_width=bins / (qhi - qlo), s2_lo=s2lo,
+            s2_width=(s2hi - s2lo) / bins, s2_inv_width=bins / (s2hi - s2lo))
         self._queue_size = int(queue_size)
         npix = frame_shape[0] * frame_shape[1] if frame_shape else 0
         self.load_state(SessionState.fresh(
             num_cameras, npix, cdf_window=cdf_window, fps=query.fps,
             queue_size=queue_size, queue_capacity=queue_capacity,
-            quantile_bins=bins, device=self.device))
+            s2_window=s2_window, quantile_bins=bins, device=self.device))
         self.stats = ShedderStats()
         self.per_camera_offered = np.zeros((self.num_cameras,), np.int64)
         self.per_camera_dropped = np.zeros((self.num_cameras,), np.int64)
@@ -764,6 +932,7 @@ class ShedSession:
     # -- the serve step ------------------------------------------------------
 
     def step(self, frames=None, *, utilities: Optional[np.ndarray] = None,
+             s2_utilities: Optional[np.ndarray] = None,
              items: Optional[Sequence[Sequence[Any]]] = None,
              tick: bool = True) -> StepResult:
         """One serve-loop iteration for the whole camera array: score ->
@@ -774,30 +943,63 @@ class ShedSession:
         tensor already on the session's device) scored by the fused
         ingest kernel (requires a trained model) — or precomputed
         ``utilities`` (C, T) to run the control plane alone.
+
+        With a session ``cascade``, a frames step also scores the color
+        gate's survivors in ONE batched scorer call (on the foreground
+        bboxes the same fused ingest computes) and applies the stage-2
+        threshold before queue insertion; queues are then ordered by the
+        SEMANTIC score. ``s2_utilities`` (C, T) gives precomputed stage-2
+        scores with ``utilities`` — the control-plane-only cascade form;
+        a utilities-only step on a cascade session runs stage 1 alone.
+
         ``items[c][t]`` are frame payloads for ``next_frame``; absent,
         queued frames are identified by their ``(cam, t)`` index pair.
         """
         if (frames is None) == (utilities is None):
             raise ValueError("pass exactly one of frames= or utilities=")
+        if s2_utilities is not None and self.cascade is None:
+            raise ValueError("s2_utilities= needs a session cascade")
+        if s2_utilities is not None and frames is not None:
+            raise ValueError("s2_utilities= goes with utilities=, not "
+                             "frames= (frames are scored by the cascade)")
+        if self.cascade is not None and (frames is not None
+                                         or s2_utilities is not None):
+            return self._cascade_step(frames, utilities, s2_utilities,
+                                      items, tick)
         kw = dict(update_cdf=self.update_cdf_online, do_tick=bool(tick),
                   min_proc=self.min_proc, budget=self._budget,
                   num_total=self._num_active, tick_cfg=self._tick_cfg)
         if frames is not None:
-            if self.model is None:
-                raise ValueError("step(frames=...) needs a trained model "
-                                 "(call fit() or pass model=)")
-            frames = self._check_frames(frames)
-            if frames.shape[1] == 0:
-                raise ValueError("empty frame batch")
-            q = self.query
-            C, T, H, W = frames.shape[:4]
-            M_pos, norm, op = self._model_constants()
-            self.state, out = _serve_step(
-                self.state, frames.reshape(C, T, H * W, 3), M_pos, norm,
-                hue_ranges=q.hue_ranges, bs=q.bs, bv=q.bv, alpha=q.alpha,
-                fg_threshold=q.threshold, use_fg=q.use_foreground,
-                bg_valid=bool(self.state.bg_valid), op=op, **kw)
+            args, ingest_kw = self._ingest_args(self._step_frames(frames))
+            self.state, out = _serve_step(self.state, *args, **ingest_kw,
+                                          **kw)
             return self._absorb_control(out, items, tick)
+        self.state, out = _control_core(
+            self.state, self._step_utilities(utilities), **kw)
+        return self._absorb_control(out, items, tick)
+
+    def _step_frames(self, frames) -> torch.Tensor:
+        if self.model is None:
+            raise ValueError("step(frames=...) needs a trained model "
+                             "(call fit() or pass model=)")
+        frames = self._check_frames(frames)
+        if frames.shape[1] == 0:
+            raise ValueError("empty frame batch")
+        return frames
+
+    def _ingest_args(self, frames):
+        """``_fused_ingest``'s positional arguments and query keywords for
+        a checked (C, T, H, W, 3) batch."""
+        q = self.query
+        C, T, H, W = frames.shape[:4]
+        M_pos, norm, op = self._model_constants()
+        return ((frames.reshape(C, T, H * W, 3), M_pos, norm),
+                dict(hue_ranges=q.hue_ranges, bs=q.bs, bv=q.bv,
+                     alpha=q.alpha, fg_threshold=q.threshold,
+                     use_fg=q.use_foreground,
+                     bg_valid=bool(self.state.bg_valid), op=op))
+
+    def _step_utilities(self, utilities) -> torch.Tensor:
         util = np.asarray(utilities, np.float32)
         if util.ndim == 1:
             util = util[None]
@@ -807,13 +1009,50 @@ class ShedSession:
                 f"got {util.shape}")
         if util.shape[1] == 0:
             raise ValueError("empty utility batch")
-        self.state, out = _control_core(
-            self.state, torch.as_tensor(util, device=self.device), **kw)
-        return self._absorb_control(out, items, tick)
+        return torch.as_tensor(util, device=self.device)
+
+    def _cascade_step(self, frames, utilities, s2_utilities, items,
+                      tick) -> StepResult:
+        """Two-stage serve step, in the reference's three phases: fused
+        ingest (utilities and the foreground bbox rider in one kernel
+        launch) and phase A (stage-1 CDF push + color gate) on the
+        session's device -> the survivors' index on the host (one sync)
+        -> ONE batched scorer call over the survivors' frames -> phase B
+        (stage-2 ring/gate + queue insertion + optional tick)."""
+        dev = self.device
+        if frames is not None:
+            frames = self._step_frames(frames)
+            args, ingest_kw = self._ingest_args(frames)
+            self.state, util, bbox = _fused_ingest(
+                self.state, *args, **ingest_kw, width=frames.shape[3])
+        else:
+            util = self._step_utilities(utilities)
+        present = torch.ones(util.shape, dtype=torch.bool, device=dev)
+        self.state, pass1 = _cascade_admit(
+            self.state, util, present, update_cdf=self.update_cdf_online,
+            tick_cfg=self._tick_cfg)
+        if s2_utilities is not None:
+            s2 = torch.as_tensor(np.asarray(s2_utilities, np.float32)
+                                 .reshape(tuple(util.shape)), device=dev)
+        else:
+            s2 = torch.zeros_like(util)
+            r, t = torch.nonzero(pass1, as_tuple=True)
+            if r.numel():
+                s2[r, t] = torch.as_tensor(self.cascade.scorer.score(
+                    frames[r, t], bbox[r, t])).to(dev, torch.float32)
+        self.state, out = _cascade_finish_core(
+            self.state, s2, present, pass1, do_tick=bool(tick),
+            min_proc=self.min_proc, budget=self._budget,
+            gate_fraction=self._gate_fraction, num_total=self._num_active,
+            tick_cfg=self._tick_cfg)
+        return self._absorb_control(out, items, tick,
+                                    s2_scores=s2.cpu().numpy())
 
     def _absorb_control(self, out: Dict[str, torch.Tensor],
                         items: Optional[Sequence[Sequence[Any]]],
-                        ticked: bool) -> StepResult:
+                        ticked: bool,
+                        s2_scores: Optional[np.ndarray] = None
+                        ) -> StepResult:
         """Fold a control step's compact outputs into host bookkeeping:
         stats, payload registry, per-camera counters."""
         host = {k: v.cpu().numpy() for k, v in out.items()}
@@ -825,6 +1064,7 @@ class ShedSession:
         offered = decisions >= 0
         self.stats.offered += int(offered.sum())
         self.stats.dropped_admission += int((decisions == SHED_ADMISSION).sum())
+        self.stats.dropped_cascade += int((decisions == SHED_CASCADE).sum())
         self.stats.dropped_queue += int(push_ev.sum())
         self.per_camera_offered += offered.sum(axis=1)
         res_cnt = (ev_res >= 0).sum(axis=1)
@@ -847,7 +1087,8 @@ class ShedSession:
             rates = host["rates"]
             self._absorb_resize(host["resize_evicted"], evicted)
         return StepResult(decisions=decisions, pushed_seq=pushed_seq,
-                          evicted=evicted, target_drop_rate=rates)
+                          evicted=evicted, target_drop_rate=rates,
+                          s2_scores=s2_scores)
 
     def _absorb_resize(self, rz: np.ndarray,
                        evicted: Optional[List[np.ndarray]] = None) -> None:
@@ -1085,10 +1326,16 @@ class ShedSession:
     def tick(self) -> Dict[str, Any]:
         """Re-derive per-camera thresholds (Eq. 17–19) and queue sizes
         (Eq. 20) from the current metric lanes — one batched quantile +
-        queue resize over all C camera lanes."""
-        self.state, rates, resize_ev = _tick_core(
-            self.state, self.min_proc, self._budget,
-            num_total=self._num_active, tick_cfg=self._tick_cfg)
+        queue resize over all C camera lanes; with a cascade, both
+        stages' thresholds at their shares of the rate."""
+        if self.cascade is not None:
+            self.state, rates, resize_ev = _cascade_tick_core(
+                self.state, self.min_proc, self._budget, self._gate_fraction,
+                num_total=self._num_active, tick_cfg=self._tick_cfg)
+        else:
+            self.state, rates, resize_ev = _tick_core(
+                self.state, self.min_proc, self._budget,
+                num_total=self._num_active, tick_cfg=self._tick_cfg)
         rates = rates.cpu().numpy()
         self._absorb_resize(resize_ev.cpu().numpy())
         st = self.state
@@ -1101,7 +1348,7 @@ class ShedSession:
         # aggregate over live lanes only: detached lanes carry rate 0 and
         # threshold +inf
         act = self._active_host
-        return {
+        snap = {
             "target_drop_rate": float(rates[act].mean()) if act.any()
             else 0.0,
             "threshold": float(threshold[finite].mean()) if finite.any()
@@ -1113,6 +1360,83 @@ class ShedSession:
                 "queue_size": queue_cap.tolist(),
             },
         }
+        if self.cascade is not None:
+            s2_th = st.s2_threshold.cpu().numpy()
+            fin2 = np.isfinite(s2_th)
+            snap["s2_threshold"] = (float(s2_th[fin2].mean())
+                                    if fin2.any() else -np.inf)
+            snap["per_camera"]["s2_threshold"] = s2_th.tolist()
+        return snap
+
+    # -- checkpoint / restore (serve-path state) -----------------------------
+
+    def _model_arrays(self) -> Dict[str, np.ndarray]:
+        """The trained utility model as fixed-shape arrays (zeros when
+        untrained) so one checkpoint template covers both cases."""
+        q = self.query
+        nc = q.num_colors
+        if self.model is not None:
+            return {"model_M_pos": np.asarray(self.model.M_pos, np.float32),
+                    "model_M_neg": np.asarray(self.model.M_neg, np.float32),
+                    "model_norm": np.asarray(self.model.norm, np.float32)}
+        return {"model_M_pos": np.zeros((nc, q.bs, q.bv), np.float32),
+                "model_M_neg": np.zeros((nc, q.bs, q.bv), np.float32),
+                "model_norm": np.zeros((nc,), np.float32)}
+
+    def checkpoint(self, path, step: int = 0, *, async_: bool = False):
+        """Persist the state lanes (plus the trained utility model and the
+        camera-id map) via ``repro_torch.train.checkpoint``, in the
+        reference's file format, keys and dtypes (atomic, async-capable:
+        every lane is copied to host before a writer thread starts).
+        Queued frame *payloads* are live host objects and do not persist —
+        restored queue entries fall back to ``(cam, seq)`` pairs."""
+        from repro_torch.train import checkpoint as ckpt
+        meta = {
+            "kind": "shed_session",
+            "num_cameras": self.num_cameras,
+            "colors": [c.name for c in self.query.colors],
+            "op": self.query.op,
+            "npix": int(self.state.bg.shape[1]),
+            "has_model": self.model is not None,
+            "model_op": self.model.op if self.model is not None else "",
+            # camera-id -> lane map, restored so a resumed session keeps
+            # serving the same external ids (ids must be msgpack-able —
+            # ints/strings; numpy ints are coerced)
+            "lane_map": [[int(k) if isinstance(k, (int, np.integer))
+                          else k, int(v)]
+                         for k, v in sorted(self._lane_of.items(),
+                                            key=lambda kv: kv[1])],
+        }
+        tree = {**self.state.as_dict(), **self._model_arrays()}
+        return ckpt.save(path, step, tree, metadata=meta, async_=async_)
+
+    def restore(self, path,
+                step: Optional[int] = None) -> Tuple[int, Dict[str, Any]]:
+        """Load a session checkpoint (written by either package) into this
+        session, whose lane shapes must match (same ``num_cameras``; pass
+        ``frame_shape`` to ``open_session`` so the background lanes are
+        allocated). The lanes are adopted through ``load_state`` on the
+        session's device; the camera-id map, free lanes, active mask,
+        rate floor and queue depths are rebuilt from the state and the
+        metadata; queued payloads are dropped; the model is rebuilt when
+        the checkpoint has one. Returns ``(step, metadata)``."""
+        from repro_torch.train import checkpoint as ckpt
+        template = {**self.state.as_dict(), **self._model_arrays()}
+        out, step, meta = ckpt.restore(path, template, step=step,
+                                       device=self.device)
+        self.load_state(SessionState(**{
+            f.name: out[f.name] for f in dataclasses.fields(SessionState)}))
+        if meta.get("has_model"):
+            self.model = UtilityModel(
+                self.query.colors, out["model_M_pos"].cpu().numpy(),
+                out["model_M_neg"].cpu().numpy(),
+                out["model_norm"].cpu().numpy(),
+                meta.get("model_op") or self.query.op)
+        self._lane_of = {k: int(v) for k, v in meta.get("lane_map", [])}
+        used = set(self._lane_of.values())
+        self._free_lanes = [lane for lane in range(self.num_cameras)
+                            if lane not in used]       # sorted: a heap
+        return step, meta
 
 
 def open_session(query: Query, num_cameras: int = 1, **kw: Any) -> ShedSession:
@@ -1125,13 +1449,18 @@ def open_session(query: Query, num_cameras: int = 1, **kw: Any) -> ShedSession:
     ``train_utilities`` (seeds the admission CDFs), ``queue_size``
     (initial per-camera queue cap), ``queue_capacity`` (the physical
     (C, K) lane bound the dynamic cap is clipped to), ``latency_inputs``,
-    ``cdf_window``, ``exact_tick``, ``quantile_bins``/``quantile_range``.
+    ``cdf_window``, ``exact_tick``, ``quantile_bins``/``quantile_range``,
+    ``cascade`` (a ``repro_torch.cascade.Cascade``: the two-stage shedder)
+    with ``s2_quantile_range`` (its stage-2 score buckets). The
+    reference's ``serve``/``impl``/``interpret`` are accepted and change
+    nothing; ``mesh``/``shard_cameras=True``/``fleet_aggregate=True``
+    raise ``NotImplementedError`` (camera sharding is not ported yet).
     """
     return ShedSession(query, num_cameras, **kw)
 
 
 __all__ = [
-    "ADMIT", "SHED_ADMISSION", "SHED_QUEUE",
+    "ADMIT", "SHED_ADMISSION", "SHED_QUEUE", "SHED_CASCADE",
     "IngestResult", "Query", "SessionState", "ShedSession", "StepResult",
     "TickConfig", "open_session",
 ]

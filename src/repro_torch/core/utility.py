@@ -18,7 +18,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.colors import Color, hue_mask
+from repro_torch.core.colors import Color, hue_mask, rgb_to_hsv
 from repro_torch.device import DeviceLike, resolve_device
 
 B_S = 8   # saturation bins (paper §V-B: 8x8, bin size 32)
@@ -33,6 +33,23 @@ def joint_bin_index(s: torch.Tensor, v: torch.Tensor, bs: int = B_S,
     sb = torch.clamp((s * (bs / 256.0)).to(torch.int32), 0, bs - 1)
     vb = torch.clamp((v * (bv / 256.0)).to(torch.int32), 0, bv - 1)
     return sb * bv + vb
+
+
+def hue_fraction(hsv: torch.Tensor, color: Color, fg_mask=None
+                 ) -> torch.Tensor:
+    """Eq. 6: fraction of (foreground) pixels whose hue is in the color.
+
+    hsv: (..., H, W, 3); fg_mask: optional (..., H, W) bool. Returns
+    (...,) float32."""
+    h = hsv[..., 0]
+    m = hue_mask(h, color)
+    if fg_mask is not None:
+        m = m & fg_mask
+        denom = fg_mask.sum(dim=(-2, -1))
+    else:
+        denom = torch.tensor(h.shape[-1] * h.shape[-2], device=h.device)
+    return (m.sum(dim=(-2, -1)).to(torch.float32)
+            / torch.clamp_min(denom, 1).to(torch.float32))
 
 
 def pixel_fraction_matrix(hsv: torch.Tensor, color: Color, fg_mask=None,
@@ -58,6 +75,15 @@ def pixel_fraction_matrix(hsv: torch.Tensor, color: Color, fg_mask=None,
     total = w.sum(dim=1)
     pf = counts / torch.clamp_min(total, 1.0)[:, None]
     return pf.reshape(*lead, bs, bv)
+
+
+def frame_features(rgb: torch.Tensor, colors: Sequence[Color], fg_mask=None,
+                   bs: int = B_S, bv: int = B_V) -> torch.Tensor:
+    """RGB frame(s) (..., H, W, 3) -> stacked PF matrices
+    (..., n_colors, bs, bv)."""
+    hsv = rgb_to_hsv(rgb)
+    return torch.stack([pixel_fraction_matrix(hsv, c, fg_mask, bs, bv)
+                        for c in colors], dim=-3)
 
 
 # ---------------------------------------------------------------------------
@@ -130,5 +156,6 @@ def train_utility_model(pfs, labels, colors: Sequence[Color],
                         op if nc > 1 else "single")
 
 
-__all__ = ["B_S", "B_V", "joint_bin_index", "pixel_fraction_matrix",
-           "UtilityModel", "batch_utilities", "train_utility_model"]
+__all__ = ["B_S", "B_V", "joint_bin_index", "hue_fraction",
+           "pixel_fraction_matrix", "frame_features", "UtilityModel",
+           "batch_utilities", "train_utility_model"]

@@ -48,6 +48,25 @@ def tree_leaves(tree, is_leaf: Callable = is_spec) -> List:
     return [tree]
 
 
+def tree_flatten_with_path(tree, is_leaf: Callable = is_spec,
+                           prefix: Tuple = ()) -> List[Tuple[Tuple, object]]:
+    """``(path, leaf)`` pairs in ``tree_leaves`` order; a path holds the
+    dict keys and sequence indices from the root down, as JAX's
+    ``tree_flatten_with_path`` gives them."""
+    if tree is None:
+        return []
+    if is_leaf(tree):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_flatten_with_path(tree[k], is_leaf,
+                                                prefix + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, t in enumerate(tree)
+                for x in tree_flatten_with_path(t, is_leaf, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 def tree_map(fn, tree, is_leaf: Callable = is_spec):
     """``fn`` applied to every leaf in ``tree_leaves`` order, keeping the
     nesting."""
@@ -116,4 +135,5 @@ def constrain(x, *axes, rules=None):
 
 
 __all__ = ["DTYPES", "ParamSpec", "constrain", "is_spec", "materialize", "num_params",
-           "spec_leaves", "tree_leaves", "tree_map", "tree_map_specs"]
+           "spec_leaves", "tree_flatten_with_path", "tree_leaves", "tree_map",
+           "tree_map_specs"]

@@ -1,0 +1,151 @@
+"""Atomic, async-capable checkpoints in the reference's file format.
+
+Format (the same bytes as ``src/repro/train/checkpoint.py`` writes, so a
+file restores in either package): one ``{step:010d}.ckpt`` file per
+checkpoint — zstd-compressed msgpack of ``{"__step__", "__meta__",
+"arrays": {key: {dtype, shape, data}}}``, keys being the tree paths
+joined by ``/`` in sorted-key flatten order, ``data`` the raw C-order
+bytes. Writes go to ``.tmp.{step}.ckpt`` and are renamed into place, so a
+crash mid-write never corrupts the latest checkpoint.
+
+A tree is nested dicts / tuples / lists of tensors or NumPy arrays
+(``repro_torch.sharding.api`` flattens it as JAX does: dict keys sorted).
+"""
+from __future__ import annotations
+
+import os
+import threading
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import msgpack
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.sharding.api import tree_flatten_with_path, tree_map
+
+try:  # optional: fall back to uncompressed checkpoints when unavailable
+    import zstandard
+except ImportError:
+    zstandard = None
+
+_SEP = "/"
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+
+
+def _flatten(tree) -> Dict[str, Any]:
+    return {_SEP.join(str(p) for p in path): leaf
+            for path, leaf in tree_flatten_with_path(tree)}
+
+
+def _host_copy(leaf) -> np.ndarray:
+    """A NumPy copy of a leaf that no later write to the leaf can reach."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy().copy()
+    return np.array(leaf)
+
+
+def _torch_dtype(leaf) -> torch.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype
+    return torch.from_numpy(np.empty(0, np.dtype(leaf.dtype))).dtype
+
+
+def save(path: os.PathLike, step: int, tree: Any,
+         metadata: Optional[dict] = None, *,
+         async_: bool = False) -> Optional[threading.Thread]:
+    """Serialize ``tree`` to ``path/{step:010d}.ckpt``. Every leaf is
+    copied to host memory before the (optional) writer thread starts, so
+    the caller may go on changing its tensors; with ``async_`` the
+    started thread is returned (join it before reading the file)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
+
+    def _write():
+        payload = {
+            "__step__": int(step),
+            "__meta__": metadata or {},
+            "arrays": {
+                k: {"dtype": str(a.dtype), "shape": list(a.shape),
+                    "data": a.tobytes()}
+                for k, a in host.items()
+            },
+        }
+        raw = msgpack.packb(payload, use_bin_type=True)
+        comp = (zstandard.ZstdCompressor(level=3).compress(raw)
+                if zstandard is not None else raw)
+        tmp = path / f".tmp.{step}.ckpt"
+        final = path / f"{step:010d}.ckpt"
+        with open(tmp, "wb") as f:
+            f.write(comp)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)
+
+    if async_:
+        t = threading.Thread(target=_write, daemon=True)
+        t.start()
+        return t
+    _write()
+    return None
+
+
+def latest_step(path: os.PathLike) -> Optional[int]:
+    path = Path(path)
+    if not path.exists():
+        return None
+    steps = [int(p.stem) for p in path.glob("*.ckpt") if p.stem.isdigit()]
+    return max(steps) if steps else None
+
+
+def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
+            device: DeviceLike = None):
+    """Load into the structure of ``template`` (a tree of tensors or
+    arrays: only their shapes and dtypes are read). Returns ``(tree,
+    step, metadata)`` with every leaf a tensor of the template leaf's
+    dtype on ``device``. Raises ``KeyError`` when the file lacks a key of
+    the template and ``ValueError`` on a shape mismatch, as the reference
+    does. The reference's ``shardings=`` (placement over a device mesh)
+    waits for fleet sharding, ROADMAP.md Queue 1 item 9."""
+    dev = resolve_device(device)
+    path = Path(path)
+    step = step if step is not None else latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    raw = (path / f"{step:010d}.ckpt").read_bytes()
+    if raw[:4] == _ZSTD_MAGIC:
+        if zstandard is None:
+            raise RuntimeError(
+                "checkpoint is zstd-compressed but zstandard is not installed")
+        raw = zstandard.ZstdDecompressor().decompress(raw)
+    payload = msgpack.unpackb(raw, raw=False)
+    arrays = payload["arrays"]
+
+    flat_template = _flatten(template)
+    missing = set(flat_template) - set(arrays)
+    if missing:
+        raise KeyError(f"checkpoint missing {sorted(missing)[:5]}...")
+    leaves = []
+    for k, t in flat_template.items():
+        rec = arrays[k]
+        a = np.frombuffer(rec["data"], dtype=rec["dtype"]).reshape(
+            rec["shape"])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{k}: ckpt shape {a.shape} != template "
+                             f"{tuple(t.shape)}")
+        leaves.append(torch.from_numpy(a.copy()).to(dev, _torch_dtype(t)))
+    it = iter(leaves)
+    return (tree_map(lambda _: next(it), template), int(payload["__step__"]),
+            payload["__meta__"])
+
+
+def prune(path: os.PathLike, keep: int = 3) -> None:
+    path = Path(path)
+    ckpts = sorted(p for p in path.glob("*.ckpt") if p.stem.isdigit())
+    for p in ckpts[:-keep]:
+        p.unlink()
+
+
+__all__ = ["latest_step", "prune", "restore", "save"]

@@ -108,3 +108,38 @@ def test_batch_utilities_and_score(op, rng):
     np.testing.assert_allclose(tm.score(torch.from_numpy(pfs)).numpy(),
                                np.asarray(jm.score(jnp.asarray(pfs))),
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("with_fg", [False, True])
+@pytest.mark.parametrize("name", ["red", "yellow", "blue", "green"])
+def test_hue_fraction_matches_reference(name, with_fg, rng):
+    rgb = _rgb(rng, (3, 11, 17, 3))
+    hsv = jcolors.rgb_to_hsv_jnp(jnp.asarray(rgb))
+    fg = rng.random((3, 11, 17)) < 0.4 if with_fg else None
+    if with_fg:
+        fg[1] = False                      # a frame without foreground
+    want = np.asarray(jutil.hue_fraction(
+        hsv, jcolors.COLORS[name], None if fg is None else jnp.asarray(fg)))
+    got = tutil.hue_fraction(
+        tcolors.rgb_to_hsv(torch.from_numpy(rgb)), tcolors.COLORS[name],
+        None if fg is None else torch.from_numpy(fg)).numpy()
+    assert got.dtype == np.float32 and got.shape == (3,)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("with_fg", [False, True])
+def test_frame_features_match_reference(with_fg, rng):
+    rgb = _rgb(rng, (2, 3, 13, 19, 3))
+    fg = rng.random((2, 3, 13, 19)) < 0.5 if with_fg else None
+    names = ["red", "yellow", "green"]
+    want = np.asarray(jutil.frame_features(
+        jnp.asarray(rgb), [jcolors.COLORS[n] for n in names],
+        None if fg is None else jnp.asarray(fg)))
+    got = tutil.frame_features(
+        torch.from_numpy(rgb), [tcolors.COLORS[n] for n in names],
+        None if fg is None else torch.from_numpy(fg)).numpy()
+    assert got.shape == (2, 3, 3, 8, 8)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    import repro_torch.core as tcore
+    assert tcore.hue_fraction is tutil.hue_fraction
+    assert tcore.frame_features is tutil.frame_features

@@ -564,6 +564,98 @@ def test_session_control_on_card_matches_cpu(exact_tick):
         np.testing.assert_array_equal(da[k], db[k], err_msg=k)
 
 
+def _traffic(C, F, H, W, seed=0):
+    """(C, F, H, W, 3) float32 frames of seeded synthetic traffic scenes."""
+    from repro_torch.data.synthetic import generate_scenario
+    return np.stack([generate_scenario(seed + c, num_frames=F, height=H,
+                                       width=W, vehicle_rate=0.3).frames_rgb()
+                     for c in range(C)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("bg_valid", [False, True])
+def test_bbox_instantiation_on_cascade_frames(bg_valid):
+    """The cascade step's ingest (``width > 0``) on traffic frames: the
+    bboxes and utilities equal to the plain version's (within
+    ``compare_with_plain``), with foreground in most frames."""
+    dev = _card()
+    C, T, H, W = 4, 8, 96, 160
+    frames = torch.as_tensor(_traffic(C, 2 * T, H, W), device=dev)
+    rgb = frames[:, T:].reshape(C, T, H * W, 3).contiguous()
+    bg0 = frames[:, T - 1].amax(dim=-1).reshape(C, H * W).contiguous()
+    rng = np.random.default_rng(3)
+    M = torch.as_tensor(rng.uniform(0, 1, (2, 64)).astype(np.float32),
+                        device=dev)
+    norm = torch.as_tensor(rng.uniform(0.3, 1, 2).astype(np.float32),
+                           device=dev)
+    args = (rgb, bg0, torch.ones(C, device=dev), M, norm, HR[:2])
+    got = kernel.ingest_batch(*args, width=W, bg_valid=bg_valid)
+    want = ref.ingest_batch_ref(*args, width=W, bg_valid=bg_valid)
+    rep = kernel.compare_with_plain(got, want, M, norm)
+    assert rep["frames_differing"] == 0
+    assert torch.equal(got[6], want[6])
+    assert int((got[6][..., 0] >= 0).sum()) > C * T // 2
+
+
+def test_cascade_step_on_card_matches_cpu_replay():
+    """Ticked ``step(frames)`` calls of a card cascade session against a
+    CPU cascade session given the card's utilities and stage-2 scores:
+    decisions, queue seqs, evictions, rates, thresholds, s2 thresholds
+    and pops bit-identical; the card scorer within 1e-5 of the CPU's on
+    the same survivors."""
+    from repro_torch.cascade import Cascade, CallableScorer, MLPScorer
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.utility import train_utility_model
+    dev = _card()
+    C, T, H, W = 4, 6, 96, 160
+    frames = _traffic(C, 5 * T, H, W, seed=10)
+    rng = np.random.default_rng(8)
+    pfs = rng.dirichlet(np.ones(64), (60, 2)).reshape(60, 2, 8, 8)
+    model = train_utility_model(pfs.astype(np.float32), rng.random(60) < 0.5,
+                                [RED, YELLOW], op="or")
+    scorer = MLPScorer.init(4, device=dev)
+    cpu_scorer = MLPScorer(params={k: v.cpu() for k, v in
+                                   scorer.params.items()})
+    seen = []
+
+    def spy(f, b):
+        seen.append((f.cpu(), b.cpu()))
+        return scorer.score(f, b)
+
+    q = Query.any_of("red", "yellow")
+    card = open_session(q, C, device=dev, model=model, frame_shape=(H, W),
+                        cascade=Cascade(CallableScorer(spy), window=128))
+    cpu = open_session(q, C, device="cpu", model=model, frame_shape=(H, W),
+                       cascade=Cascade(cpu_scorer, window=128))
+    cpu.load_state(state_from_numpy(card.state.as_dict(), "cpu"))
+    Wc = card.state.cdf_buf.shape[1]
+    shed = np.zeros(4, np.int64)
+    for i in range(5):
+        lat = float(rng.uniform(0.03, 0.08))
+        for s in (card, cpu):
+            s.report_backend_latency(lat)
+        pos = card.state.cdf_pos.cpu().numpy()
+        a = card.step(frames[:, i * T:(i + 1) * T], tick=True)
+        idx = (pos[:, None] + np.arange(T)[None, :]) % Wc
+        util = np.take_along_axis(card.state.cdf_buf.cpu().numpy(), idx, 1)
+        b = cpu.step(utilities=util, s2_utilities=a.s2_scores, tick=True)
+        np.testing.assert_array_equal(a.decisions, b.decisions)
+        np.testing.assert_array_equal(a.pushed_seq, b.pushed_seq)
+        np.testing.assert_array_equal(a.target_drop_rate, b.target_drop_rate)
+        for x, y in zip(a.evicted, b.evicted):
+            np.testing.assert_array_equal(x, y)
+        da, db = card.state.as_dict(), cpu.state.as_dict()
+        for k in set(da) - {"bg", "gain", "bg_valid"}:   # ingest lanes
+            np.testing.assert_array_equal(da[k], db[k], err_msg=k)
+        assert card.next_frames(5) == cpu.next_frames(5)
+        if seen:
+            f, bb = seen.pop()
+            np.testing.assert_allclose(
+                scorer.score(f.to(dev), bb.to(dev)).cpu().numpy(),
+                cpu_scorer.score(f, bb).numpy(), atol=1e-5, rtol=0)
+        shed += np.bincount(a.decisions.reshape(-1), minlength=4)
+    assert shed[1] > 0 and shed[3] > 0      # both gates shed
+
+
 FLASH_CASES = [
     # B, Hq, Hkv, Sq, Sk, d, causal, window  (tests/test_kernels_flash.py)
     (2, 4, 2, 256, 256, 64, True, None),

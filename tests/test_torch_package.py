@@ -72,8 +72,14 @@ def test_new_service_modules_are_in_the_checks():
               "repro_torch.configs.gemma3_12b", "repro_torch.sharding.api",
               "repro_torch.models", "repro_torch.models.common",
               "repro_torch.models.attention", "repro_torch.models.blocks",
-              "repro_torch.models.lm", "repro_torch.convert"):
+              "repro_torch.models.lm", "repro_torch.convert",
+              "repro_torch.cascade", "repro_torch.cascade.scorer",
+              "repro_torch.cascade.fit", "repro_torch.train",
+              "repro_torch.train.checkpoint", "repro_torch.train.optimizer",
+              "repro_torch.train.step"):
         assert m in mods
+    from repro_torch import convert
+    assert "scorer_params_from_numpy" in convert.__all__
 
 
 def test_kernel_libraries_are_keyed_on_every_compiled_file(tmp_path):
