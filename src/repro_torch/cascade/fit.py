@@ -16,6 +16,8 @@ from the same initial parameters the port trains on the same batches.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -34,12 +36,15 @@ from repro_torch.train.step import make_scorer_train_step
 
 def collect_examples(scenarios, colors, *, op: str = "or",
                      alpha: float = 0.05, threshold: float = 18.0,
-                     use_foreground: bool = True, device: DeviceLike = None):
+                     use_foreground: bool = True, device: DeviceLike = None,
+                     impl: Optional[str] = None,
+                     interpret: Optional[bool] = None):
     """Scenarios -> (frames (M, H, W, 3) float32, bboxes (M, 4) int32,
     labels (M,) float32), tensors on ``device``. Bboxes come from the
     fused ingest (``ingest_pipeline(with_bbox=True)``: the CUDA kernel on
     the card), so training crops match what the cascade sees at serve
-    time.
+    time. The reference's ``impl=``/``interpret=`` are accepted and
+    change nothing (the device picks the kernel).
     """
     dev = resolve_device(device)
     names = [c.name for c in colors]
@@ -76,9 +81,11 @@ def fit_scorer(scenarios, colors, *, op: str = "or", roi_size: int = 16,
                lr: float = 3e-3, seed: int = 0, augment: bool = True,
                checkpoint_dir=None, alpha: float = 0.05,
                threshold: float = 18.0, use_foreground: bool = True,
-               device: DeviceLike = None):
+               device: DeviceLike = None, impl: Optional[str] = None,
+               interpret: Optional[bool] = None):
     """Fit an ``MLPScorer`` on synthetic-scenario ground truth, on
-    ``device`` (the card by default).
+    ``device`` (the card by default). ``impl=``/``interpret=``: accepted
+    no-ops, as in ``collect_examples``.
 
     Returns ``(scorer, metrics)``; ``metrics`` reports the class
     balance, the first and final training losses, the final accuracy

@@ -46,14 +46,23 @@ reference's NumPy ``serve="host"`` twin (the tests hold it to that), and
 on the card to this same code on the CPU. The reference's ``serve=``,
 ``impl=`` and ``interpret=`` keywords are accepted and change nothing
 (there is one control plane, and the ingest kernel is chosen by the
-device); camera sharding (``mesh=``, ``shard_cameras=True``,
-``fleet_aggregate=True``) raises ``NotImplementedError``.
+device).
+
+With ``mesh=`` (a ``fleet.CameraMesh``) or ``shard_cameras=True`` the
+camera lanes are split over the mesh's shards (``repro_torch.core.fleet``):
+``step``, ``offer_batch``, ``tick``, ``next_frame`` and ``next_frames``
+run the same cores shard by shard with the global camera count, and give
+the unsharded session's results bit for bit; ``fleet_aggregate=True``
+adds the fleet's counts and means to every sharded step
+(``last_fleet_stats``; ``fleet_stats()`` on demand). The rarer calls run
+the unsharded code on the gathered state and split it again.
 
 ``open_session(query, num_cameras, ...)`` is the entry point.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -61,6 +70,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import fleet as fl
 from repro_torch.core import shed_queue as sq
 from repro_torch.core.colors import COLORS, Color
 from repro_torch.core.control import LatencyInputs
@@ -281,6 +291,9 @@ class SessionState:
             s2_threshold=full((C,), float("-inf"), f32),
             s2_counts=full((C, B), 0, i32),
         )
+
+
+_STATE_NAMES = tuple(f.name for f in dataclasses.fields(SessionState))
 
 
 @dataclass(frozen=True)
@@ -565,17 +578,18 @@ def _cascade_finish_core(state: SessionState, s2, present, pass1, *,
 
 def _fused_ingest(state: SessionState, frames, M_pos, norm, *, hue_ranges,
                   bs, bv, alpha, fg_threshold, use_fg, bg_valid, op,
-                  width: int = 0):
+                  width: int = 0, plan_cameras: Optional[int] = None):
     """Fused ingest of (C, T, N, 3) frames (the CUDA kernel on a CUDA
     state) carrying the state's background lanes. Returns (state',
     utilities (C, T), and with ``width > 0`` the (C, T, 4) foreground
-    bboxes, else None)."""
+    bboxes, else None). ``plan_cameras``: see ``ingest_core`` (a camera
+    shard passes the whole array's count)."""
     bg0 = state.bg if bg_valid else torch.zeros_like(state.bg)
     gain0 = state.gain if bg_valid else torch.ones_like(state.gain)
     res = ingest_core(
         frames, bg0, gain0, M_pos, norm, hue_ranges=hue_ranges, bs=bs,
         bv=bv, alpha=alpha, threshold=fg_threshold, use_fg=use_fg,
-        bg_valid=bg_valid, op=op, width=width)
+        bg_valid=bg_valid, op=op, width=width, plan_cameras=plan_cameras)
     state = dataclasses.replace(
         state, bg=res[4], gain=res[5],
         bg_valid=torch.tensor(True, device=state.device))
@@ -594,9 +608,35 @@ def _serve_step(state: SessionState, frames, M_pos, norm, *, update_cdf,
                          num_total=num_total, tick_cfg=tick_cfg)
 
 
+def _on_whole_state(method):
+    """Run a rarely called method of a camera-sharded session on the
+    whole state: the shards are gathered onto the session's device, the
+    unsharded code runs on that global state, and the result is split
+    over the mesh again — bit-identical to the unsharded session by
+    construction. An unsharded session runs the method as it is."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self._shards is None:
+            return method(self, *args, **kwargs)
+        self._state = fl.gather_state(self._shards, self.device)
+        self._shards = None
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self._shards = fl.shard_state(self._state, self.mesh)
+            self._state = None
+    return run
+
+
+def _host(x) -> np.ndarray:
+    """A compact output on the host (tensors are copied, arrays pass)."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
 class ShedSession:
     """A camera array's Load Shedder: fused scoring + per-camera
-    admission/queues + shared-backend control loop, on one device.
+    admission/queues + shared-backend control loop, on one device or
+    split by camera rows over a ``fleet.CameraMesh``.
 
     Use :func:`open_session` to construct one.
     """
@@ -626,14 +666,36 @@ class ShedSession:
                  device: DeviceLike = None) -> None:
         if num_cameras < 1:
             raise ValueError("num_cameras must be >= 1")
-        if mesh is not None or shard_cameras or fleet_aggregate:
-            raise NotImplementedError(
-                "camera sharding (mesh=, shard_cameras=True, "
-                "fleet_aggregate=True) is not ported yet: ROADMAP.md "
-                "Queue 1 item 9")
+        if cascade is not None and (mesh is not None or shard_cameras):
+            raise ValueError(
+                "cascade= is not supported with camera sharding yet: the "
+                "stage-2 scorer is one call over the whole array's "
+                "survivors, and the sharded serve plane has no such step")
         if serve not in (None, "host", "device"):
             raise ValueError(f"unknown serve impl {serve!r}")
+        # fleet mode: shard the camera lanes over a camera mesh
+        # (repro_torch.core.fleet). shard_cameras=True without a mesh
+        # builds one over every device of the session's kind; a mesh
+        # alone implies sharding.
+        if shard_cameras is None:
+            shard_cameras = mesh is not None
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self.mesh: Optional[fl.CameraMesh] = None
+        self._state: Optional[SessionState] = None
+        self._shards: Optional[Tuple[SessionState, ...]] = None
+        self.fleet_aggregate = bool(fleet_aggregate)
+        self.last_fleet_stats: Optional[Dict[str, float]] = None
+        if shard_cameras:
+            if serve == "host":
+                raise ValueError(
+                    "shard_cameras requires serve='device' (the sharded "
+                    "serve plane runs the device cores shard by shard)")
+            if mesh is None:
+                mesh = (fl.fleet_mesh() if self.device.type == "cuda"
+                        else fl.fleet_mesh(1, device=self.device))
+            self.mesh = mesh         # fl.shard_state refuses uneven splits
         self.query = query
         self.num_cameras = int(num_cameras)
         self.model = model
@@ -676,32 +738,72 @@ class ShedSession:
         if train_utilities is not None:
             self.seed_cdf(train_utilities)
 
+    @property
+    def state(self) -> SessionState:
+        """The whole ``SessionState``; on a camera-sharded session a
+        gathered copy on the session's device (writes to it do not reach
+        the shards: assign a whole state instead)."""
+        if self._shards is None:
+            return self._state
+        return fl.gather_state(self._shards, self.device)
+
+    @state.setter
+    def state(self, state: SessionState) -> None:
+        if self._shards is None:
+            self._state = state
+        else:
+            self._shards = fl.shard_state(state, self.mesh)
+
+    def _lanes(self) -> Sequence[SessionState]:
+        """The state as it is held: the whole state, or its shards in
+        mesh (camera) order."""
+        return (self._state,) if self._shards is None else self._shards
+
+    def _host_leaf(self, name: str) -> np.ndarray:
+        """One leaf's global lanes on the host, without gathering the
+        rest of a sharded state."""
+        return np.concatenate([getattr(s, name).cpu().numpy()
+                               for s in self._lanes()])
+
     def load_state(self, state: SessionState) -> None:
         """Adopt a whole ``SessionState`` (e.g. one carried over from the
         reference by ``repro_torch.convert.state_from_numpy``): its lanes
-        move to this session's device, the host-side queue-depth cache is
-        recounted, and queued payloads fall back to ``(cam, seq)`` pairs."""
+        move to this session's device (or its mesh's shards), the
+        host-side queue-depth cache is recounted, and queued payloads fall
+        back to ``(cam, seq)`` pairs."""
         if state.num_cameras != self.num_cameras:
             raise ValueError(f"state has {state.num_cameras} camera lanes, "
                              f"session has {self.num_cameras}")
-        self.state = SessionState(**{
-            f.name: getattr(state, f.name).to(self.device, copy=True)
-            for f in dataclasses.fields(state)})
-        self.queue_capacity = int(self.state.q_util.shape[1])
+        if self.mesh is None:
+            self._adopt((SessionState(**{
+                f.name: getattr(state, f.name).to(self.device, copy=True)
+                for f in dataclasses.fields(state)}),))
+        else:
+            self._adopt(fl.shard_state(state, self.mesh))
+
+    def _adopt(self, lanes: Sequence[SessionState]) -> None:
+        """Hold ``lanes`` (the whole state, or its shards in mesh order)
+        as this session's state and rebuild the host-side bookkeeping."""
+        if self.mesh is None:
+            self._state, self._shards = lanes[0], None
+        else:
+            self._state, self._shards = None, tuple(lanes)
+        self.queue_capacity = int(lanes[0].q_util.shape[1])
         self._payloads: List[Dict[int, Any]] = [
             {} for _ in range(self.num_cameras)]
         # live queue depths, maintained incrementally from the compact
         # step/pop outputs so __len__/queue_depths never transfer the
         # (C, K) q_seq lanes to host
-        self._depths = (self.state.q_seq >= 0).sum(dim=1).cpu().numpy(
+        self._depths = np.concatenate([
+            (s.q_seq >= 0).sum(dim=1).cpu().numpy() for s in lanes]
         ).astype(np.int64)
         # external camera id -> lane; unmapped lanes sit in a min-heap, so
         # lane() claims the smallest free lane (first-seen order)
         self._lane_of: Dict[Any, int] = {}
         self._free_lanes: List[int] = list(range(self.num_cameras))
-        self._active_host = self.state.active.cpu().numpy().copy()
+        self._active_host = self._host_leaf("active").copy()
         self._num_active = int(self._active_host.sum())
-        self._rate_floor_host = float(self.state.rate_floor.max())
+        self._rate_floor_host = float(self._host_leaf("rate_floor").max())
 
     # -- camera lanes / churn ------------------------------------------------
 
@@ -738,6 +840,7 @@ class ShedSession:
             raise ValueError(f"camera {cam_id!r} is already attached")
         return self.lane(cam_id)
 
+    @_on_whole_state
     def detach_camera(self, cam_id: Any) -> List[Any]:
         """Remove a live camera: its queued frames are drained (returned,
         and counted as queue sheds — they will never transmit), the lane
@@ -766,6 +869,7 @@ class ShedSession:
         arr[lane] = torch.as_tensor(np.asarray(value), dtype=arr.dtype)
         setattr(self.state, name, arr)
 
+    @_on_whole_state
     def _reset_lane(self, lane: int, active: bool) -> None:
         """Fresh per-camera state for one lane — the leaves the
         reference's ``_reset_lane`` resets and no others. Inactive lanes
@@ -801,6 +905,7 @@ class ShedSession:
     def rate_floor(self) -> float:
         return self._rate_floor_host
 
+    @_on_whole_state
     def set_rate_floor(self, floor: float) -> None:
         """Degraded-regime floor under every lane's Eq. 19 target drop
         rate, applied at the next ``tick``/``step``. 0.0 restores the
@@ -842,6 +947,7 @@ class ShedSession:
                                       device=self.device))
         return self.model
 
+    @_on_whole_state
     def seed_cdf(self, utilities: Union[np.ndarray, Sequence[float]]) -> None:
         """Fill every camera's CDF window with a shared utility history."""
         us = np.asarray(utilities, np.float32).reshape(-1)
@@ -856,15 +962,20 @@ class ShedSession:
 
     def _check_frames(self, frames) -> torch.Tensor:
         """(C, T, H, W, 3) float32 frames on the session's device: a numpy
-        array is copied there, a tensor must already lie there."""
+        array is copied there, a tensor must already lie there. A sharded
+        session takes a tensor on the host or on a mesh device, and keeps
+        an array on the host: each shard's rows go to its device later."""
         if isinstance(frames, torch.Tensor):
-            if frames.device != self.device:
+            ok = ((self.device,) if self.mesh is None
+                  else (torch.device("cpu"),) + self.mesh.devices)
+            if frames.device not in ok:
                 raise ValueError(f"frames on {frames.device}, session on "
                                  f"{self.device}")
             frames = frames.to(torch.float32)
         else:
-            frames = torch.as_tensor(np.asarray(frames, np.float32),
-                                     device=self.device)
+            frames = torch.as_tensor(
+                np.asarray(frames, np.float32),
+                device=self.device if self.mesh is None else "cpu")
         if frames.ndim == 4:
             frames = frames[None]
         if frames.ndim != 5 or frames.shape[0] != self.num_cameras:
@@ -872,22 +983,25 @@ class ShedSession:
                 f"expected ({self.num_cameras}, T, H, W, 3) frames, "
                 f"got {tuple(frames.shape)}")
         n = frames.shape[2] * frames.shape[3]
-        st = self.state
-        if st.bg.shape[1] != n:
-            if bool(st.bg_valid):
-                raise ValueError(
-                    f"frame size {n} px does not match carried background "
-                    f"state {tuple(st.bg.shape)}")
-            st.bg = torch.zeros((self.num_cameras, n), dtype=torch.float32,
-                                device=self.device)
+        for st in self._lanes():
+            if st.bg.shape[1] != n:
+                if bool(st.bg_valid):
+                    raise ValueError(
+                        f"frame size {n} px does not match carried "
+                        f"background state {(self.num_cameras, st.bg.shape[1])}")
+                st.bg = torch.zeros((st.num_cameras, n), dtype=torch.float32,
+                                    device=st.device)
         return frames.contiguous()
 
-    def ingest(self, frames) -> IngestResult:
+    @_on_whole_state
+    def ingest(self, frames, *, impl: Optional[str] = None,
+               interpret: Optional[bool] = None) -> IngestResult:
         """Score one frame batch for the whole camera array in one fused
         ingest, carrying per-camera background state.
 
         frames: (C, T, H, W, 3) float32 RGB in [0, 255] — or
-        (T, H, W, 3) for single-camera sessions.
+        (T, H, W, 3) for single-camera sessions. The reference's
+        ``impl=``/``interpret=`` are accepted and change nothing.
         """
         frames = self._check_frames(frames)
         st = self.state
@@ -908,8 +1022,10 @@ class ShedSession:
     @property
     def ingest_state(self) -> IngestState:
         """The kernel-facing ``(bg, gain)`` lanes (for host handoff)."""
-        return IngestState(bg=self.state.bg, gain=self.state.gain)
+        st = self.state
+        return IngestState(bg=st.bg, gain=st.gain)
 
+    @_on_whole_state
     def set_ingest_state(self, state: Optional[IngestState]) -> None:
         """Adopt carried ``(bg, gain)`` lanes (tensors or arrays; a
         single-camera state gets a camera lane), or forget them with
@@ -934,7 +1050,8 @@ class ShedSession:
     def step(self, frames=None, *, utilities: Optional[np.ndarray] = None,
              s2_utilities: Optional[np.ndarray] = None,
              items: Optional[Sequence[Sequence[Any]]] = None,
-             tick: bool = True) -> StepResult:
+             tick: bool = True, impl: Optional[str] = None,
+             interpret: Optional[bool] = None) -> StepResult:
         """One serve-loop iteration for the whole camera array: score ->
         CDF push -> admission -> queue selection -> (``tick=True``)
         threshold/queue-size re-derivation.
@@ -954,6 +1071,12 @@ class ShedSession:
 
         ``items[c][t]`` are frame payloads for ``next_frame``; absent,
         queued frames are identified by their ``(cam, t)`` index pair.
+        The reference's ``impl=``/``interpret=`` are accepted and change
+        nothing (the device picks the kernel).
+
+        On a camera-sharded session each shard takes its rows of the
+        batch through one fused ingest on its device (``fleet.serve_step``)
+        or its rows of the utilities (``fleet.control_step``).
         """
         if (frames is None) == (utilities is None):
             raise ValueError("pass exactly one of frames= or utilities=")
@@ -971,11 +1094,23 @@ class ShedSession:
                   num_total=self._num_active, tick_cfg=self._tick_cfg)
         if frames is not None:
             args, ingest_kw = self._ingest_args(self._step_frames(frames))
-            self.state, out = _serve_step(self.state, *args, **ingest_kw,
-                                          **kw)
+            if self.mesh is not None:
+                self._shards, out, agg = fl.serve_step(
+                    self._shards, *args, mesh=self.mesh,
+                    aggregate=self.fleet_aggregate, **ingest_kw, **kw)
+                self._absorb_fleet(agg)
+            else:
+                self._state, out = _serve_step(self._state, *args,
+                                               **ingest_kw, **kw)
             return self._absorb_control(out, items, tick)
-        self.state, out = _control_core(
-            self.state, self._step_utilities(utilities), **kw)
+        util = self._step_utilities(utilities)
+        if self.mesh is not None:
+            self._shards, out, agg = fl.control_step(
+                self._shards, util, mesh=self.mesh,
+                aggregate=self.fleet_aggregate, **kw)
+            self._absorb_fleet(agg)
+        else:
+            self._state, out = _control_core(self._state, util, **kw)
         return self._absorb_control(out, items, tick)
 
     def _step_frames(self, frames) -> torch.Tensor:
@@ -997,7 +1132,7 @@ class ShedSession:
                 dict(hue_ranges=q.hue_ranges, bs=q.bs, bv=q.bv,
                      alpha=q.alpha, fg_threshold=q.threshold,
                      use_fg=q.use_foreground,
-                     bg_valid=bool(self.state.bg_valid), op=op))
+                     bg_valid=bool(self._lanes()[0].bg_valid), op=op))
 
     def _step_utilities(self, utilities) -> torch.Tensor:
         util = np.asarray(utilities, np.float32)
@@ -1053,9 +1188,10 @@ class ShedSession:
                         ticked: bool,
                         s2_scores: Optional[np.ndarray] = None
                         ) -> StepResult:
-        """Fold a control step's compact outputs into host bookkeeping:
-        stats, payload registry, per-camera counters."""
-        host = {k: v.cpu().numpy() for k, v in out.items()}
+        """Fold a control step's compact outputs (tensors, or a sharded
+        step's global arrays) into host bookkeeping: stats, payload
+        registry, per-camera counters."""
+        host = {k: _host(v) for k, v in out.items()}
         decisions = host["decisions"]
         pushed_seq = host["pushed_seq"]
         ev_res = host["evicted_resident"]
@@ -1106,6 +1242,26 @@ class ShedSession:
                 evicted[c] = np.concatenate([evicted[c],
                                              evs.astype(np.int64)])
 
+    # -- fleet observability (sharded sessions) ------------------------------
+
+    def _absorb_fleet(self, agg: Optional[Dict[str, Any]]) -> None:
+        """Keep the latest fleet aggregates (host view) when the sharded
+        step computed them."""
+        if self.fleet_aggregate and agg is not None:
+            self.last_fleet_stats = fl.derive_fleet_stats(agg,
+                                                          self.num_cameras)
+
+    def fleet_stats(self) -> Dict[str, float]:
+        """Global fleet aggregates — queue depth, backend load, mean
+        threshold — from each shard's sums, added on the host in shard
+        order."""
+        if self.mesh is None:
+            raise ValueError("fleet_stats() needs a camera-sharded "
+                             "session (open_session(..., shard_cameras"
+                             "=True))")
+        return fl.aggregates(self._shards, mesh=self.mesh,
+                             num_cameras=self.num_cameras)
+
     # -- admission + queues --------------------------------------------------
 
     def admit(self, utilities: np.ndarray,
@@ -1117,6 +1273,7 @@ class ShedSession:
         return self.step(utilities=utilities, items=items,
                          tick=False).decisions
 
+    @_on_whole_state
     def offer(self, item: Any, utility: float,
               cam: Optional[int] = None) -> str:
         """Frame-at-a-time admission (the simulator/serving surface).
@@ -1195,12 +1352,18 @@ class ShedSession:
                 present[c, t] = True
                 batch_items[c][t] = items[i]
                 slot_of[(c, t)] = i
-        self.state, out = _control_core(
-            self.state, torch.as_tensor(util, device=self.device),
-            torch.as_tensor(present, device=self.device),
-            update_cdf=self.update_cdf_online, do_tick=False,
-            min_proc=self.min_proc, budget=self._budget,
-            num_total=self._num_active, tick_cfg=self._tick_cfg)
+        kw = dict(update_cdf=self.update_cdf_online, do_tick=False,
+                  min_proc=self.min_proc, budget=self._budget,
+                  num_total=self._num_active, tick_cfg=self._tick_cfg)
+        if self.mesh is not None:
+            self._shards, out, agg = fl.control_step(
+                self._shards, util, present, mesh=self.mesh,
+                aggregate=self.fleet_aggregate, **kw)
+            self._absorb_fleet(agg)
+        else:
+            self._state, out = _control_core(
+                self._state, torch.as_tensor(util, device=self.device),
+                torch.as_tensor(present, device=self.device), **kw)
         res = self._absorb_control(out, batch_items, ticked=False)
         codes = [""] * len(items)
         for (c, t), i in slot_of.items():
@@ -1209,11 +1372,21 @@ class ShedSession:
 
     def next_frame(self, cam: Optional[int] = None) -> Optional[Any]:
         """Transmission control: send the best queued frame — of one
-        camera, or (default) the best across the whole array."""
-        st = self.state
-        st.q_util, st.q_seq, c, seqv = sq.pop_best_dev(st.q_util, st.q_seq,
-                                                       cam)
-        c, seqv = int(c), int(seqv)
+        camera, or (default) the best across the whole array (on a
+        sharded session the cross-shard top-1 of ``fleet.pop_topk``)."""
+        if self.mesh is not None:
+            rows = None
+            if cam is not None:
+                rows = np.zeros((self.num_cameras,), bool)
+                rows[int(cam)] = True
+            self._shards, pc, ps = fl.pop_topk(self._shards, mesh=self.mesh,
+                                               k=1, rows=rows)
+            c, seqv = int(pc[0]), int(ps[0])
+        else:
+            st = self._state
+            st.q_util, st.q_seq, c, seqv = sq.pop_best_dev(
+                st.q_util, st.q_seq, cam)
+            c, seqv = int(c), int(seqv)
         if seqv < 0:
             return None
         self._depths[c] -= 1
@@ -1231,12 +1404,17 @@ class ShedSession:
             return []
         rows = None
         if cams is not None:
-            rows = torch.zeros((self.num_cameras,), dtype=torch.bool,
-                               device=self.device)
+            rows = np.zeros((self.num_cameras,), bool)
             rows[[int(c) for c in cams]] = True
-        st = self.state
-        st.q_util, st.q_seq, pc, ps = sq.pop_topk_dev(st.q_util, st.q_seq,
-                                                      int(k), rows)
+        if self.mesh is not None:
+            self._shards, pc, ps = fl.pop_topk(self._shards, mesh=self.mesh,
+                                               k=int(k), rows=rows)
+        else:
+            st = self._state
+            if rows is not None:
+                rows = torch.as_tensor(rows, device=self.device)
+            st.q_util, st.q_seq, pc, ps = sq.pop_topk_dev(
+                st.q_util, st.q_seq, int(k), rows)
         items: List[Any] = []
         for c, s in zip(pc.tolist(), ps.tolist()):
             if s < 0:               # -1 padding: pool drained
@@ -1272,11 +1450,12 @@ class ShedSession:
     def expected_proc(self, cam: Optional[int] = None) -> float:
         """Current backend per-frame latency estimate: camera ``cam``'s
         lane, or (default) the worst lane."""
-        q = self.state.proc_q.cpu().numpy()
+        q = self._host_leaf("proc_q")
         if cam is not None:
             return float(q[int(cam)])
         return float(q.max(initial=0.0))
 
+    @_on_whole_state
     def report_backend_latency(self, proc_latency: float,
                                cam: Optional[int] = None) -> None:
         """Backend-latency metric feed: asymmetric EWMA (overload is
@@ -1302,6 +1481,7 @@ class ShedSession:
             st.proc_q = torch.where(upd, new, q)
             st.proc_seen = st.proc_seen | upd
 
+    @_on_whole_state
     def report_ingress_fps(self, fps: float, cam: Optional[int] = None) -> None:
         """Observed ingress rate: per camera, or an aggregate rate split
         evenly across the array's lanes (the aggregate form computes in
@@ -1328,21 +1508,27 @@ class ShedSession:
         (Eq. 20) from the current metric lanes — one batched quantile +
         queue resize over all C camera lanes; with a cascade, both
         stages' thresholds at their shares of the rate."""
-        if self.cascade is not None:
-            self.state, rates, resize_ev = _cascade_tick_core(
-                self.state, self.min_proc, self._budget, self._gate_fraction,
-                num_total=self._num_active, tick_cfg=self._tick_cfg)
+        if self.mesh is not None:
+            self._shards, rates, resize_ev, agg = fl.tick(
+                self._shards, mesh=self.mesh, num_total=self._num_active,
+                min_proc=self.min_proc, budget=self._budget,
+                tick_cfg=self._tick_cfg, aggregate=self.fleet_aggregate)
+            self._absorb_fleet(agg)
+        elif self.cascade is not None:
+            self._state, rates, resize_ev = _cascade_tick_core(
+                self._state, self.min_proc, self._budget,
+                self._gate_fraction, num_total=self._num_active,
+                tick_cfg=self._tick_cfg)
         else:
-            self.state, rates, resize_ev = _tick_core(
-                self.state, self.min_proc, self._budget,
+            self._state, rates, resize_ev = _tick_core(
+                self._state, self.min_proc, self._budget,
                 num_total=self._num_active, tick_cfg=self._tick_cfg)
-        rates = rates.cpu().numpy()
-        self._absorb_resize(resize_ev.cpu().numpy())
-        st = self.state
-        threshold = st.threshold.cpu().numpy()
+        rates = _host(rates)
+        self._absorb_resize(_host(resize_ev))
+        threshold = self._host_leaf("threshold")
         # report the EFFECTIVE queue sizes: Eq. 20's cap clipped to the
         # physical (C, K) lane bound the queues actually honor
-        queue_cap = np.minimum(st.queue_cap.cpu().numpy(),
+        queue_cap = np.minimum(self._host_leaf("queue_cap"),
                                self.queue_capacity)
         finite = np.isfinite(threshold)
         # aggregate over live lanes only: detached lanes carry rate 0 and
@@ -1361,7 +1547,7 @@ class ShedSession:
             },
         }
         if self.cascade is not None:
-            s2_th = st.s2_threshold.cpu().numpy()
+            s2_th = self._host_leaf("s2_threshold")
             fin2 = np.isfinite(s2_th)
             snap["s2_threshold"] = (float(s2_th[fin2].mean())
                                     if fin2.any() else -np.inf)
@@ -1391,12 +1577,13 @@ class ShedSession:
         Queued frame *payloads* are live host objects and do not persist —
         restored queue entries fall back to ``(cam, seq)`` pairs."""
         from repro_torch.train import checkpoint as ckpt
+        st = self.state          # gathered: the file is mesh-independent
         meta = {
             "kind": "shed_session",
             "num_cameras": self.num_cameras,
             "colors": [c.name for c in self.query.colors],
             "op": self.query.op,
-            "npix": int(self.state.bg.shape[1]),
+            "npix": int(st.bg.shape[1]),
             "has_model": self.model is not None,
             "model_op": self.model.op if self.model is not None else "",
             # camera-id -> lane map, restored so a resumed session keeps
@@ -1407,7 +1594,7 @@ class ShedSession:
                          for k, v in sorted(self._lane_of.items(),
                                             key=lambda kv: kv[1])],
         }
-        tree = {**self.state.as_dict(), **self._model_arrays()}
+        tree = {**st.as_dict(), **self._model_arrays()}
         return ckpt.save(path, step, tree, metadata=meta, async_=async_)
 
     def restore(self, path,
@@ -1419,13 +1606,28 @@ class ShedSession:
         session's device; the camera-id map, free lanes, active mask,
         rate floor and queue depths are rebuilt from the state and the
         metadata; queued payloads are dropped; the model is rebuilt when
-        the checkpoint has one. Returns ``(step, metadata)``."""
+        the checkpoint has one. A camera-sharded session takes each lane
+        straight into its own mesh's shards (``restore(shardings=)``),
+        whatever mesh wrote the file. Returns ``(step, metadata)``."""
         from repro_torch.train import checkpoint as ckpt
         template = {**self.state.as_dict(), **self._model_arrays()}
+        shardings = None
+        if self.mesh is not None:
+            shardings = {k: (self.mesh if k in _STATE_NAMES
+                             and k not in fl._SCALAR_LEAVES else None)
+                         for k in template}
         out, step, meta = ckpt.restore(path, template, step=step,
-                                       device=self.device)
-        self.load_state(SessionState(**{
-            f.name: out[f.name] for f in dataclasses.fields(SessionState)}))
+                                       device=self.device,
+                                       shardings=shardings)
+        if self.mesh is None:
+            self.load_state(SessionState(**{
+                k: out[k] for k in _STATE_NAMES}))
+        else:
+            self._adopt(tuple(SessionState(**{
+                k: (out[k][i] if isinstance(out[k], tuple)
+                    else out[k].to(dev, copy=True))
+                for k in _STATE_NAMES})
+                for i, dev in enumerate(self.mesh.devices)))
         if meta.get("has_model"):
             self.model = UtilityModel(
                 self.query.colors, out["model_M_pos"].cpu().numpy(),
@@ -1453,8 +1655,16 @@ def open_session(query: Query, num_cameras: int = 1, **kw: Any) -> ShedSession:
     ``cascade`` (a ``repro_torch.cascade.Cascade``: the two-stage shedder)
     with ``s2_quantile_range`` (its stage-2 score buckets). The
     reference's ``serve``/``impl``/``interpret`` are accepted and change
-    nothing; ``mesh``/``shard_cameras=True``/``fleet_aggregate=True``
-    raise ``NotImplementedError`` (camera sharding is not ported yet).
+    nothing.
+
+    Fleet scale-out: ``shard_cameras=True`` (a mesh over every device of
+    the session's kind: all CUDA devices, or one CPU shard) or
+    ``mesh=fleet.fleet_mesh(...)`` splits the camera lanes over the
+    mesh's shards (``repro_torch.core.fleet``), bit-identical to the
+    unsharded session; ``num_cameras`` must divide evenly over the mesh,
+    ``serve="host"`` and ``cascade=`` are refused with it, and
+    ``fleet_aggregate=True`` adds the fleet's counts and means to every
+    sharded step (``last_fleet_stats``, ``fleet_stats()``).
     """
     return ShedSession(query, num_cameras, **kw)
 

@@ -488,17 +488,18 @@ def peek_best_host(util, seq):
 # pop's ``==`` mask; dev and host use the same order-preserving bit map,
 # so they agree bit-for-bit.
 
-def pop_topk_dev(util, seq, k: int, rows=None):
-    """Pop the ``min(k, C*K)`` best entries of the (C, K) lanes — exactly
-    the sequence ``k`` sequential :func:`pop_best_dev` (cam=None) calls
-    would pop, with no host sync.
+def topk_candidates_dev(util, seq, kk: int, rows=None):
+    """The first ``kk`` entries of the (C, K) lanes in pop order
+    (utility desc, camera asc, seq asc), with no host sync.
 
     rows: optional (C,) bool mask restricting candidate cameras.
-    Returns (util', seq', cams, seqs): popped identities padded with -1
-    past the number of live entries (found entries form a prefix).
+    Returns (flat slot index (kk,) int64, found (kk,) bool, utility-desc
+    key (kk,) int64): entries past the live ones have ``found`` False and
+    the largest key. The key orders ``±0.0`` as one value and is the same
+    on every device, so candidates of several lane blocks merge by
+    (key, camera, seq) into the order one block of all of them gives.
     """
     C, K = util.shape
-    kk = min(int(k), C * K)
     dev = util.device
     valid = seq >= 0
     if rows is not None:
@@ -514,16 +515,37 @@ def pop_topk_dev(util, seq, k: int, rows=None):
                     stable=True).indices
     o2 = torch.sort(ukey[o1], stable=True).indices
     order = o1[o2][:kk]
-    found = valid[order]
-    pc = torch.where(found, order // K, -1).to(torch.int32)
-    ps = torch.where(found, seq_f[order], -1).to(torch.int32)
-    # clear the popped slots; misses write to one padding slot
-    idx = torch.where(found, order, C * K)
+    return order, valid[order], ukey[order]
+
+
+def clear_slots_dev(util, seq, idx):
+    """New (C, K) lanes with the flat slots ``idx`` emptied; an index of
+    ``C*K`` writes to a padding slot that is cut off (no slot)."""
+    C, K = util.shape
     nu = torch.cat([util.reshape(-1), util.new_zeros(1)])
     nu[idx] = float("-inf")
-    ns = torch.cat([seq_f, seq_f.new_zeros(1)])
+    ns = torch.cat([seq.reshape(-1), seq.new_zeros(1)])
     ns[idx] = -1
-    return (nu[:C * K].reshape(C, K), ns[:C * K].reshape(C, K), pc, ps)
+    return nu[:C * K].reshape(C, K), ns[:C * K].reshape(C, K)
+
+
+def pop_topk_dev(util, seq, k: int, rows=None):
+    """Pop the ``min(k, C*K)`` best entries of the (C, K) lanes — exactly
+    the sequence ``k`` sequential :func:`pop_best_dev` (cam=None) calls
+    would pop, with no host sync.
+
+    rows: optional (C,) bool mask restricting candidate cameras.
+    Returns (util', seq', cams, seqs): popped identities padded with -1
+    past the number of live entries (found entries form a prefix).
+    """
+    C, K = util.shape
+    order, found, _ = topk_candidates_dev(util, seq, min(int(k), C * K),
+                                          rows)
+    pc = torch.where(found, order // K, -1).to(torch.int32)
+    ps = torch.where(found, seq.reshape(-1)[order], -1).to(torch.int32)
+    # clear the popped slots; misses write to the padding slot
+    nu, ns = clear_slots_dev(util, seq, torch.where(found, order, C * K))
+    return nu, ns, pc, ps
 
 
 def _topk_key_host(util, valid):
@@ -585,5 +607,5 @@ __all__ = [
     "push_one_dev", "push_one_host",
     "resize_dev", "resize_host",
     "pop_best_dev", "pop_best_host", "peek_best_host",
-    "pop_topk_dev", "pop_topk_host",
+    "pop_topk_dev", "pop_topk_host", "topk_candidates_dev", "clear_slots_dev",
 ]

@@ -75,9 +75,12 @@ def ingest_stream(frames_rgb: np.ndarray, colors: Sequence[Color],
                   model: Optional[UtilityModel] = None, *,
                   state: Optional[IngestState] = None, batch: int = 64,
                   use_foreground: bool = True, op: Optional[str] = None,
-                  device: DeviceLike = None):
+                  device: DeviceLike = None, impl: Optional[str] = None,
+                  interpret: Optional[bool] = None):
     """Fused camera-side ingest over a (T, H, W, 3) RGB stream — a thin
-    wrapper over a single-camera ``ShedSession``.
+    wrapper over a single-camera ``ShedSession``. The reference's
+    ``impl=``/``interpret=`` are accepted and change nothing (the device
+    picks the kernel).
 
     Chunks the stream into ``batch``-frame batches, each one fused ingest
     (RGB->HSV + background subtraction + PF features + utility), carrying
@@ -152,12 +155,15 @@ def camera_array_records(scenarios: Sequence[VideoScenario],
                          model: Optional[UtilityModel] = None,
                          cam_ids: Optional[Sequence[int]] = None,
                          batch: int = 64,
-                         device: DeviceLike = None
+                         device: DeviceLike = None,
+                         impl: Optional[str] = None,
+                         interpret: Optional[bool] = None
                          ) -> List[List[FrameRecord]]:
     """C same-shape camera streams -> per-camera FrameRecord lists via
     ONE C-camera ``ShedSession``: each ``batch``-frame chunk of the whole
     array is a single fused ingest with per-camera ``(bg, gain)`` state
-    lanes carried across chunks."""
+    lanes carried across chunks. ``impl=``/``interpret=``: accepted
+    no-ops, as in ``ingest_stream``."""
     frames = np.stack([sc.frames_rgb().astype(np.float32)
                        for sc in scenarios])            # (C, T, H, W, 3)
     sess = _ingest_session(colors, len(scenarios), model, use_foreground,

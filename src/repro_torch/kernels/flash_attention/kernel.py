@@ -321,21 +321,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if out.numel() == 0:
         return out
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    split = {}
-    if q.dtype == torch.float32:
-        plan = flash_plan(B, Hq, Sq, Sk, d, causal, window,
-                          resident_blocks(dev, d))
-        if plan.n_split > 1:
-            partials = torch.empty(plan.partial_floats, dtype=torch.float32,
-                                   device=dev)
-            split = dict(n_split=plan.n_split, partials=partials.data_ptr(),
-                         tickets=tickets(dev, stream, plan.tiles).data_ptr())
-    p = pack_params(q, k, v, out, causal=causal, window=window,
-                    scale=scale, **split)
-    err = lib.flash_attention_launch(ctypes.byref(p), q.data_ptr(),
-                                     k.data_ptr(), v.data_ptr(),
-                                     out.data_ptr(), stream)
+    with torch.cuda.device(dev):     # the launch runs on q's device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        split = {}
+        if q.dtype == torch.float32:
+            plan = flash_plan(B, Hq, Sq, Sk, d, causal, window,
+                              resident_blocks(dev, d))
+            if plan.n_split > 1:
+                partials = torch.empty(plan.partial_floats,
+                                       dtype=torch.float32, device=dev)
+                split = dict(n_split=plan.n_split,
+                             partials=partials.data_ptr(),
+                             tickets=tickets(dev, stream,
+                                             plan.tiles).data_ptr())
+        p = pack_params(q, k, v, out, causal=causal, window=window,
+                        scale=scale, **split)
+        err = lib.flash_attention_launch(ctypes.byref(p), q.data_ptr(),
+                                         k.data_ptr(), v.data_ptr(),
+                                         out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CUDA flash attention launch failed: cudaError "
                            f"{err}")

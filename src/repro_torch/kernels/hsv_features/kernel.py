@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -150,16 +150,20 @@ class WorkPlan:
                 for it in range(block, self.cameras * self.ntiles, self.grid)]
 
 
-def work_plan(C: int, N: int, resident: int) -> WorkPlan:
+def work_plan(C: int, N: int, resident: int,
+              plan_cameras: Optional[int] = None) -> WorkPlan:
     """The plan for C cameras of N pixels on a card that holds
     ``resident`` blocks of the kernel at once: about ``resident / C``
     tiles a camera (one item a block), none under ``MIN_TILE`` pixels, so
     a small call launches few blocks; more cameras than resident blocks
-    give each block several items."""
-    if min(C, N, resident) < 1:
-        raise ValueError(f"work_plan needs C, N, resident >= 1, got "
-                         f"{(C, N, resident)}")
-    per_cam = max(1, resident // C)
+    give each block several items. With ``plan_cameras`` the tiles are
+    cut as for that many cameras (a shard of a larger array), and only
+    the grid follows C."""
+    P = C if plan_cameras is None else int(plan_cameras)
+    if min(C, N, resident, P) < 1:
+        raise ValueError(f"work_plan needs C, N, resident, plan_cameras "
+                         f">= 1, got {(C, N, resident, P)}")
+    per_cam = max(1, resident // P)
     tile = max(MIN_TILE, -(-N // per_cam))
     tile += -tile % 4
     ntiles = -(-N // tile)
@@ -252,7 +256,8 @@ def _check(name, t, shape, dtype=torch.float32):
 def ingest_batch(rgb, bg0, gain0, M_pos, norm, hue_ranges,
                  bs: int = B_S, bv: int = B_V, *, alpha: float = 0.05,
                  threshold: float = 18.0, use_fg: bool = True,
-                 bg_valid: bool = True, op: str = "or", width: int = 0):
+                 bg_valid: bool = True, op: str = "or", width: int = 0,
+                 plan_cameras: Optional[int] = None):
     """Fused batched ingest for a whole camera array.
 
     rgb:   (T, N, 3) float32 RGB in [0, 255] (frames flattened to
@@ -268,6 +273,12 @@ def ingest_batch(rgb, bg0, gain0, M_pos, norm, hue_ranges,
     the input had one; ``width > 0`` (the frame's pixel-row stride)
     appends the per-frame foreground bounding box (T, 4) int32, all -1
     for frames without foreground.
+
+    ``plan_cameras`` (default C) is the camera count the work plan
+    (``work_plan``) is made for: the tile, and so the grouping of each
+    camera's gain sums, depends on it. A shard of a camera array passes
+    the whole array's count, and its cameras' outputs are then bit for
+    bit those of the unsharded call. The plain version has no plan.
     """
     if rgb.device.type == "cpu":
         return ingest_batch_ref(
@@ -290,7 +301,7 @@ def ingest_batch(rgb, bg0, gain0, M_pos, norm, hue_ranges,
     _check("bg0", bg0, (C, N))
     _check("M_pos", M_pos, (nc, nb))
     _check("norm", norm, (nc,))
-    plan = work_plan(C, N, resident_blocks(dev))
+    plan = work_plan(C, N, resident_blocks(dev), plan_cameras)
     params = _params(C, T, N, hue_ranges, bs, bv, alpha, threshold, use_fg,
                      bg_valid, op, width, plan.tile)
     lib = _lib("ingest")
@@ -311,13 +322,14 @@ def ingest_batch(rgb, bg0, gain0, M_pos, norm, hue_ranges,
     bbox = bbox.view(C, T, 4)
     partials = torch.empty((C, T, plan.ntiles, 2), dtype=torch.float64,
                            device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ingest_batch_launch(
-        ctypes.byref(params), plan.grid, rgb.data_ptr(), bg0.data_ptr(),
-        gain0.data_ptr(), M_pos.data_ptr(), norm.data_ptr(),
-        counts.data_ptr(), totals.data_ptr(), fgtot.data_ptr(),
-        util.data_ptr(), bg.data_ptr(), gain.data_ptr(), bbox.data_ptr(),
-        acc.data_ptr(), partials.data_ptr(), stream)
+    with torch.cuda.device(dev):     # the launch runs on rgb's device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ingest_batch_launch(
+            ctypes.byref(params), plan.grid, rgb.data_ptr(), bg0.data_ptr(),
+            gain0.data_ptr(), M_pos.data_ptr(), norm.data_ptr(),
+            counts.data_ptr(), totals.data_ptr(), fgtot.data_ptr(),
+            util.data_ptr(), bg.data_ptr(), gain.data_ptr(), bbox.data_ptr(),
+            acc.data_ptr(), partials.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CUDA ingest kernel launch failed: cudaError {err}")
     ingest_batch.launches += 1
@@ -373,13 +385,14 @@ def hsv_hist_batch(rgb, fg, hue_ranges, bs: int = B_S, bv: int = B_V):
     counts, totals, fgtot = out.split([T * nc * nb, T * nc, T])
     partials = torch.empty(T * G * (nc * nb + 1), dtype=torch.int32,
                            device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    frame_tickets = tickets(dev, stream, T)   # one a frame
     weights = fg if fg.dtype == torch.float32 else fg.view(torch.uint8)
-    err = lib.hsv_hist_launch(
-        ctypes.byref(p), rgb.data_ptr(), weights.data_ptr(),
-        counts.data_ptr(), totals.data_ptr(), fgtot.data_ptr(),
-        partials.data_ptr(), frame_tickets.data_ptr(), stream)
+    with torch.cuda.device(dev):     # the launch runs on rgb's device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        frame_tickets = tickets(dev, stream, T)   # one a frame
+        err = lib.hsv_hist_launch(
+            ctypes.byref(p), rgb.data_ptr(), weights.data_ptr(),
+            counts.data_ptr(), totals.data_ptr(), fgtot.data_ptr(),
+            partials.data_ptr(), frame_tickets.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CUDA hsv_hist kernel launch failed: cudaError "
                            f"{err}")

@@ -95,17 +95,24 @@ class IngestState:
 
 
 def ingest_core(rgb, bg0, gain0, M_pos, norm, *, hue_ranges, bs, bv,
-                alpha, threshold, use_fg, bg_valid, op, width: int = 0):
+                alpha, threshold, use_fg, bg_valid, op, width: int = 0,
+                plan_cameras: Optional[int] = None,
+                impl: Optional[str] = None, interpret: Optional[bool] = None):
     """Fused ingest on flattened frames through ``kernel.ingest_batch``
     (the CUDA kernel on a CUDA tensor, the plain version on the CPU).
 
     rgb: (T, N, 3) or (C, T, N, 3) float32. Returns the kernel tuple
     (counts, totals, fg_total, utility, bg, gain); ``width > 0`` appends
-    the per-frame foreground bounding box.
+    the per-frame foreground bounding box. ``plan_cameras``: the camera
+    count the kernel's work plan is made for (default: C; a camera shard
+    passes the whole array's, so that its gains are summed as the
+    unsharded call sums them). The reference's ``impl=``/``interpret=``
+    are accepted and change nothing (the device picks the kernel).
     """
     return ingest_batch(rgb, bg0, gain0, M_pos, norm, hue_ranges, bs, bv,
                         alpha=alpha, threshold=threshold, use_fg=use_fg,
-                        bg_valid=bg_valid, op=op, width=width)
+                        bg_valid=bg_valid, op=op, width=width,
+                        plan_cameras=plan_cameras)
 
 
 def query_constants(model, nc: int, bs: int, bv: int, op: Optional[str],
@@ -139,7 +146,9 @@ def ingest_pipeline(rgb, colors: Sequence[Color],
                     alpha: float = 0.05, threshold: float = 18.0,
                     use_foreground: bool = True, op: Optional[str] = None,
                     bs: int = B_S, bv: int = B_V,
-                    with_bbox: bool = False, device: DeviceLike = None):
+                    with_bbox: bool = False, device: DeviceLike = None,
+                    impl: Optional[str] = None,
+                    interpret: Optional[bool] = None):
     """Fused ingest for one frame batch.
 
     rgb: (T, H, W, 3) float32 RGB in [0, 255], or (C, T, H, W, 3) for a
@@ -149,7 +158,8 @@ def ingest_pipeline(rgb, colors: Sequence[Color],
     each with a leading camera lane iff the input had one. ``util`` is
     None when no trained ``model`` is supplied. ``with_bbox=True``
     appends the per-frame foreground bounding box (``(T, 4)`` int32,
-    all -1 when the mask is empty).
+    all -1 when the mask is empty). ``impl=``/``interpret=``: accepted
+    no-ops, as in ``ingest_core``.
     """
     if isinstance(rgb, torch.Tensor):
         rgb = rgb.to(torch.float32)

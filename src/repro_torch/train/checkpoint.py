@@ -100,15 +100,34 @@ def latest_step(path: os.PathLike) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _row_blocks(a: np.ndarray, mesh, dtype: torch.dtype, key: str):
+    """``a`` split by its leading rows into one block per mesh entry,
+    block ``i`` a tensor on the mesh's device ``i``."""
+    S = len(mesh.devices)
+    if a.ndim == 0 or a.shape[0] % S:
+        raise ValueError(f"{key}: cannot split shape {a.shape} by rows over "
+                         f"{S} mesh entries")
+    n = a.shape[0] // S
+    return tuple(torch.from_numpy(a[i * n:(i + 1) * n].copy()).to(d, dtype)
+                 for i, d in enumerate(mesh.devices))
+
+
 def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
-            device: DeviceLike = None):
+            device: DeviceLike = None, shardings: Any = None):
     """Load into the structure of ``template`` (a tree of tensors or
     arrays: only their shapes and dtypes are read). Returns ``(tree,
     step, metadata)`` with every leaf a tensor of the template leaf's
     dtype on ``device``. Raises ``KeyError`` when the file lacks a key of
     the template and ``ValueError`` on a shape mismatch, as the reference
-    does. The reference's ``shardings=`` (placement over a device mesh)
-    waits for fleet sharding, ROADMAP.md Queue 1 item 9."""
+    does.
+
+    ``shardings``: a tree matching ``template`` with a camera mesh
+    (``repro_torch.core.fleet.CameraMesh``: anything with ``.devices``)
+    or ``None`` at each leaf, the placement the reference's
+    ``NamedSharding`` tree gives. A leaf with a mesh comes back as the
+    tuple of its leading-row blocks, block ``i`` on the mesh's device
+    ``i``; a leaf with ``None`` comes back whole on ``device``. The file
+    holds global arrays, so any mesh restores it."""
     dev = resolve_device(device)
     path = Path(path)
     step = step if step is not None else latest_step(path)
@@ -127,6 +146,7 @@ def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
     missing = set(flat_template) - set(arrays)
     if missing:
         raise KeyError(f"checkpoint missing {sorted(missing)[:5]}...")
+    flat_shard = _flatten(shardings) if shardings is not None else {}
     leaves = []
     for k, t in flat_template.items():
         rec = arrays[k]
@@ -135,7 +155,11 @@ def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"{k}: ckpt shape {a.shape} != template "
                              f"{tuple(t.shape)}")
-        leaves.append(torch.from_numpy(a.copy()).to(dev, _torch_dtype(t)))
+        mesh = flat_shard.get(k)
+        if mesh is not None:
+            leaves.append(_row_blocks(a, mesh, _torch_dtype(t), k))
+        else:
+            leaves.append(torch.from_numpy(a.copy()).to(dev, _torch_dtype(t)))
     it = iter(leaves)
     return (tree_map(lambda _: next(it), template), int(payload["__step__"]),
             payload["__meta__"])

@@ -305,13 +305,22 @@ def test_gate_fraction_one_reduces_to_single_stage():
 
 
 @pytest.mark.parametrize("kw", [dict(shard_cameras=True),
-                                dict(mesh=object()),
+                                dict(mesh="two CPU shards"),
                                 dict(fleet_aggregate=True)])
 def test_sharding_is_refused_until_it_is_ported(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    """Camera sharding is ported, but not with a cascade: as in the
+    reference, ``cascade=`` with sharding raises ``ValueError``, and
+    ``fleet_aggregate=True`` alone is stored and shards nothing."""
+    from repro_torch.core.fleet import fleet_mesh
+    if "mesh" in kw:
+        kw = dict(mesh=fleet_mesh(2, device="cpu"))
+    if "fleet_aggregate" in kw:
+        for sess in (_sess(cascade=_casc(), **kw), _sess(**kw)):
+            assert sess.mesh is None and sess.fleet_aggregate
+        return
+    with pytest.raises(ValueError, match="cascade"):
         _sess(cascade=_casc(), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _sess(**kw)
+    assert _sess(**kw).mesh is not None
 
 
 def test_cascade_rejects_bad_inputs():

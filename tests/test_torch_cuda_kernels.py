@@ -656,6 +656,70 @@ def test_cascade_step_on_card_matches_cpu_replay():
     assert shed[1] > 0 and shed[3] > 0      # both gates shed
 
 
+def _sharded_frames_vs_unsharded(dev, mesh):
+    """Ticked ``step(frames)`` calls of a session on ``mesh`` against the
+    unsharded session on ``dev`` with the same frames: decisions, every
+    lane (``bg`` and ``gain`` included) and pops bit-identical, one
+    ingest launch a shard a step. The frames are large enough that a
+    shard planned for its own cameras would cut other tiles than the
+    whole array's call."""
+    from repro_torch.core.utility import train_utility_model
+    C, T, H, W, up = 8, 4, 96, 160, 3
+    S = mesh.size
+    frames = torch.as_tensor(_traffic(C, 4 * T, H, W, seed=20), device=dev)
+    frames = frames.repeat_interleave(up, 2).repeat_interleave(up, 3)
+    N = H * W * up * up
+    res = kernel.resident_blocks(dev)
+    assert kernel.work_plan(C // S, N, res).tile != \
+        kernel.work_plan(C, N, res).tile
+    rng = np.random.default_rng(21)
+    pfs = rng.dirichlet(np.ones(64), (60, 2)).reshape(60, 2, 8, 8)
+    model = train_utility_model(pfs.astype(np.float32), rng.random(60) < 0.5,
+                                [RED, YELLOW], op="or")
+    q = Query.any_of("red", "yellow")
+    hist = rng.uniform(0, 1, 200).astype(np.float32)
+    a, b = (open_session(q, C, device=dev, model=model,
+                         frame_shape=(H * up, W * up), train_utilities=hist,
+                         **kw)
+            for kw in ({}, dict(mesh=mesh)))
+    for i in range(4):
+        batch = frames[:, i * T:(i + 1) * T].contiguous()
+        for s in (a, b):
+            s.report_backend_latency(float(0.01 + 0.01 * i))
+        ra = a.step(batch, tick=True)
+        before = kernel.ingest_batch.launches
+        rb = b.step(batch, tick=True)
+        assert kernel.ingest_batch.launches == before + S
+        np.testing.assert_array_equal(ra.decisions, rb.decisions)
+        np.testing.assert_array_equal(ra.pushed_seq, rb.pushed_seq)
+        np.testing.assert_array_equal(ra.target_drop_rate, rb.target_drop_rate)
+        da, db = a.state.as_dict(), b.state.as_dict()
+        for k in da:
+            np.testing.assert_array_equal(da[k], db[k], err_msg=f"{i} {k}")
+        assert a.next_frames(6) == b.next_frames(6)
+
+
+def test_sharded_frames_step_on_card_matches_unsharded():
+    """Two shards of one card (``fleet_mesh(2, device=card)``)."""
+    from repro_torch.core.fleet import fleet_mesh
+    dev = _card()
+    _sharded_frames_vs_unsharded(dev, fleet_mesh(2, device=dev))
+
+
+def test_sharded_frames_step_on_distinct_cards_matches_unsharded():
+    """One shard a card over every visible card (``fleet_mesh()``, up to
+    four), the batch on the first: each shard's rows go to its card and
+    its ingest launches there (``torch.cuda.device`` guard)."""
+    from repro_torch.core.fleet import fleet_mesh
+    _card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    mesh = fleet_mesh(4 if n >= 4 else 2)
+    assert len(set(mesh.devices)) == mesh.size
+    _sharded_frames_vs_unsharded(mesh.devices[0], mesh)
+
+
 FLASH_CASES = [
     # B, Hq, Hkv, Sq, Sk, d, causal, window  (tests/test_kernels_flash.py)
     (2, 4, 2, 256, 256, 64, True, None),

@@ -123,3 +123,68 @@ def test_features_from_hsv_match_reference(rng):
         want = jp.features_from_hsv(hsv, jc, mask, batch=4)
         assert got.shape == (9, 2, 8, 8)
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_reference_impl_keywords_are_accepted_no_ops(rng):
+    """The reference's ``impl=``/``interpret=`` keywords, accepted past
+    ``open_session`` at every place the reference takes them, change
+    nothing: each call gives what the call without them gives."""
+    import torch
+
+    import repro_torch.core as tcore
+    from repro_torch.cascade import fit as tfit
+    from repro_torch.kernels.hsv_features import ops
+
+    noop = dict(impl="pallas", interpret=True)
+    scs = _scenes(2)
+    colors = [RED, YELLOW]
+    frames = np.stack([sc.frames_rgb()[:6] for sc in scs]).astype(np.float32)
+
+    def same(a, b):
+        if isinstance(a, (list, tuple)):
+            assert type(a) is type(b) and len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        elif isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, (np.ndarray, torch.Tensor)):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+        elif hasattr(a, "__dict__"):
+            same(vars(a), vars(b))
+        else:
+            assert a == b
+
+    def twice(fn, *args, **kw):
+        same(fn(*args, **kw), fn(*args, **kw, **noop))
+
+    _, tm = _models()
+    twice(tp.ingest_stream, frames[0], colors, tm, batch=4, device="cpu")
+    twice(tp.camera_array_records, scs, colors, model=tm, batch=16,
+          device="cpu")
+    rgb = torch.as_tensor(frames)
+    twice(ops.ingest_pipeline, rgb, colors, tm, with_bbox=True)
+    M_pos, norm, op = ops.query_constants(tm, 2, 8, 8, "or", device="cpu")
+    flat = rgb.reshape(2, 6, H * W, 3)
+    kw = dict(hue_ranges=tuple(tuple(c.hue_ranges) for c in colors), bs=8,
+              bv=8, alpha=0.05, threshold=18.0, use_fg=True, bg_valid=False,
+              op=op)
+    twice(ops.ingest_core, flat, torch.zeros(2, H * W), torch.ones(2),
+          M_pos, norm, **kw)
+    twice(tfit.collect_examples, scs, [RED], device="cpu")
+    fit_kw = dict(op="or", roi_size=8, hidden=8, steps=3, batch_size=16,
+                  device="cpu")
+    a = tfit.fit_scorer(scs, [RED], **fit_kw)
+    b = tfit.fit_scorer(scs, [RED], **fit_kw, **noop)
+    same(a[0].params, b[0].params)
+    same(a[1], b[1])
+
+    q = tcore.Query.any_of("red", "yellow")
+    sa, sb = (tcore.open_session(q, 2, model=tm, device="cpu",
+                                 train_utilities=np.linspace(0, 1, 20))
+              for _ in range(2))
+    same(sa.ingest(frames[:, :3]), sb.ingest(frames[:, :3], **noop))
+    same(sa.step(frames[:, 3:]), sb.step(frames[:, 3:], **noop))
+    u = rng.uniform(0, 1, (2, 4)).astype(np.float32)
+    same(sa.step(utilities=u), sb.step(utilities=u, **noop))
