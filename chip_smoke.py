@@ -99,6 +99,29 @@ Phases, each printing one JSON line:
    with its peak memory, then ``python -m repro_torch.launch.serve
    --real-backend`` (``main``) on the card: the service with
    ``make_lm_backend()`` as its backend must admit and send frames;
+8a. decode — token-by-token serving of that smollm (``held_decode``):
+   2 layers deep in float32, 128 seeded tokens prefilled into 256 slots
+   on the card and the CPU (first logits within 1e-4, ``pos`` exact, k/v
+   within a bf16 ulp), then 16 teacher-forced steps on both from the
+   card's cache copied to the CPU, with a bf16 and with an int8 cache:
+   the card's cache updated in place, ``pos`` equal, each step's logits
+   no farther from the CPU's than the CPU's decode is from the float32
+   forward, differing cache entries counted; decode vs forward at full
+   depth on the card within ``LM_F32_SLACK`` x the CPU's; bf16
+   ``make_prefill_step`` at 1 x 128 and 8 x 1024, greedy
+   ``make_decode_step`` with 2048 slots at B = 1 and 8, bf16 and int8
+   caches (``timed_decode``: ms a token, tokens/s, cache and peak bytes,
+   one profiled step); then decode_ring: gemma3-12b at full width, one
+   pattern period (6 of 48 layers) in float32, 1000 tokens prefilled on
+   the card, 40 steps on both past the 1024-token window, every ring's
+   ``pos`` holding positions 16..1039;
+8b. moe — granite-moe-1b-a400m at full width: layer 0's MoE input (1 x
+   128, float32, from the CPU) through ``_route``/``moe_apply`` on both:
+   routing flips counted with the CPU's k-th/(k+1)-th probability gap,
+   outputs of identically routed tokens within 1e-4, the card's aux with
+   the CPU's routing within 1e-5; scatter vs one-hot on the card, both
+   timed; bf16 forwards at 1 x 64 and 4 x 2048 (ms, peak, one profiled
+   forward each) and greedy decode at B = 1;
 9. flash — the CUDA ``flash_attention`` through its entry points, with
    the launch counter at 0, on (a) layer 0's q, k, v of that full-width
    smollm at 4 x 2048 (projected and roped as ``attend_full`` does,
@@ -160,6 +183,22 @@ LM_F32_SLACK = 4.0
 # tests' float32 tolerance against the reference).
 LM_CUT_LAYERS, LM_CUT_TOL = 2, 1e-4
 LM_SVC_ARGS = ["--real-backend", "--cams", "4", "--frames", "60"]
+# decode phase: the lm phase's smollm weights, LM_CUT_LAYERS deep in
+# float32, prefilled with DECODE_PREFILL seeded tokens into DECODE_MAX_SEQ
+# slots, then DECODE_STEPS teacher-forced steps held to the CPU's; the
+# bf16 serving steps timed with DECODE_TIMED_MAX_SEQ slots, prefill at
+# DECODE_PREFILL_SHAPES and greedy decode (the median of
+# DECODE_TIMED_STEPS steps) at DECODE_BATCHES
+DECODE_PREFILL, DECODE_STEPS, DECODE_MAX_SEQ = 128, 16, 256
+DECODE_TIMED_MAX_SEQ, DECODE_TIMED_STEPS = 2048, 32
+DECODE_PREFILL_SHAPES, DECODE_BATCHES = ((1, 128), (8, 1024)), (1, 8)
+# gemma3-12b at full width and one pattern period (5 local + 1 global of
+# its 48 layers), float32: RING_PREFILL tokens, then RING_STEPS decoded
+# past its 1024-token window
+RING_ARCH, RING_LAYERS, RING_PREFILL, RING_STEPS = "gemma3-12b", 6, 1000, 40
+# moe phase: granite's layer-0 MoE on MOE_CHECK_SHAPE tokens, card vs CPU
+MOE_ARCH, MOE_CHECK_SHAPE, MOE_OUT_TOL, MOE_AUX_TOL = (
+    "granite-moe-1b-a400m", (1, 128), 1e-4, 1e-5)
 FLASH_A = (4, 2048)             # smollm layer 0: batch, sequence
 FLASH_B = (1, 4096)             # gemma3-12b local layer: batch, sequence
 FLASH_C_TAIL = (2, 512, 2048)   # batch, queries at the tail, keys
@@ -592,6 +631,8 @@ def main() -> int:
     hist = hist_phase(dev, frames, hr, nc, nb, N, kernel, ref)
     service_phase(dev, kernel, state_from_numpy)
     params = lm_phase(dev)
+    decode_phase(dev, params)
+    moe_phase(dev)
     flash = flash_phase(dev, params)
     del params
 
@@ -1479,31 +1520,9 @@ def lm_phase(dev):
         timed[f"{B}x{S}"] = {"ms": ms, "peak_bytes": int(peak),
                              "peak_above_weights_bytes": int(peak - base)}
     # where a backend-shaped forward's time goes: one profiled forward
-    from torch.profiler import ProfilerActivity, profile
     toks = tokens(*LM_SHAPES[0], dev)
-    with torch.inference_mode(), profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lm_forward(cfg, params, {"tokens": toks})
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    dev_rows, cpu_rows = [], []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_rows.append((us, e.key, e.count))
-        elif e.device_type == torch.autograd.DeviceType.CPU:
-            cpu_rows.append((e.self_cpu_time_total, e.key, e.count))
-    dev_us = sum(r[0] for r in dev_rows)
-    profiled = {
-        "shape": list(LM_SHAPES[0]), "wall_ms": prof_wall * 1e3,
-        "device_ms": dev_us / 1e3,
-        "device_busy_share": dev_us / 1e6 / prof_wall,
-        "device_kernels": sum(r[2] for r in dev_rows),
-        "top_cpu_self_ms": [[k[:60], us / 1e3, n] for us, k, n in
-                            sorted(cpu_rows, reverse=True)[:10]],
-        "top_device_ms": [[k[:60], us / 1e3, n] for us, k, n in
-                          sorted(dev_rows, reverse=True)[:6]]}
+    profiled = dict(shape=list(LM_SHAPES[0]), **profiled_call(
+        lambda: lm_forward(cfg, params, {"tokens": toks})))
     emit({"phase": "lm", "arch": LM_ARCH, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                             cfg.num_kv_heads],
@@ -1537,6 +1556,413 @@ def lm_phase(dev):
           "shed_rate": res.metrics["derived"]["shed_rate"],
           "violations": res.violations})
     return params
+
+
+def profiled_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, opened by the MARKER:
+    its wall time up to a synchronisation, device time, device kernels,
+    the device's busy share and the top CPU and device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)                       # the MARKER
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_rows, cpu_rows = [], []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and MARKER not in e.key):
+            dev_rows.append((us, e.key, e.count))
+        elif e.device_type == torch.autograd.DeviceType.CPU:
+            cpu_rows.append((e.self_cpu_time_total, e.key, e.count))
+    dev_us = sum(r[0] for r in dev_rows)
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+            "device_busy_share": dev_us / 1e6 / wall,
+            "device_kernels": sum(r[2] for r in dev_rows),
+            "top_cpu_self_ms": [[k[:60], us / 1e3, n] for us, k, n in
+                                sorted(cpu_rows, reverse=True)[:10]],
+            "top_device_ms": [[k[:60], us / 1e3, n] for us, k, n in
+                              sorted(dev_rows, reverse=True)[:6]]}
+
+
+def _cache_leaves(caches):
+    return [t for b in caches["blocks"] for _, t in sorted(b.items())]
+
+
+def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
+                prefill_on_cpu=True) -> dict:
+    """Prefill ``toks[:, :n_prefill]`` on the card, copy its caches to the
+    CPU, then decode the rest of ``toks`` (teacher-forced) on both. In a
+    float32 config a decode step still rounds to bf16 (the cache, the
+    attention probabilities, its output and ``wo`` run in bf16, the
+    reference's dtype flow), so one float32 last bit can move a rounding
+    to the other neighbour on one side: each step's logits are held no
+    farther from the CPU's than the CPU's decode is from the full float32
+    forward over the same tokens (the whole bf16 path's effect). ``pos``
+    lanes must be equal at every step; the cache entries that differ are
+    counted. With ``prefill_on_cpu`` the CPU's own prefill is held too:
+    first logits at ``LM_CUT_TOL``, ``pos`` exact, k/v and scales within
+    one bf16 ulp (no tighter than 1e-5 of the leaf's largest value), and
+    the count of differing entries and their largest difference
+    reported."""
+    import torch
+    from repro_torch.models import lm_decode_step, lm_forward, lm_prefill
+    from repro_torch.sharding.api import tree_map
+    dev = params["embed"].device
+    real = slice(0, cfg.vocab_size)
+    P, T = n_prefill, toks.shape[1]
+    out = {"prefill": P, "steps": T - P, "max_seq": max_seq}
+
+    def to_cpu(tree):
+        return tree_map(lambda t: t.cpu(), tree, is_leaf=torch.is_tensor)
+
+    def differing(a, b):
+        """(entries that differ, their largest difference) over k/v and
+        scales; pos lanes must be equal."""
+        n, most = 0, 0.0
+        for x, y in zip(_cache_leaves(a), _cache_leaves(b)):
+            if x.dtype == torch.int32:
+                if not torch.equal(x, y):
+                    raise AssertionError("decode: pos lanes differ")
+                continue
+            d = (x.float() - y.float()).abs()
+            n += int((d > 0).sum())
+            most = max(most, float(d.max()))
+        return n, most
+
+    with torch.inference_mode():
+        card, first = lm_prefill(cfg, params, {"tokens": toks[:, :P].to(dev)},
+                                 max_seq=max_seq)
+        if prefill_on_cpu:
+            cpu_own, cpu_first = lm_prefill(
+                cfg, cpu_params, {"tokens": toks[:, :P]}, max_seq=max_seq)
+            first = first[:, real].cpu()
+            if not torch.allclose(first, cpu_first[:, real], atol=LM_CUT_TOL,
+                                  rtol=LM_CUT_TOL):
+                raise AssertionError("decode: prefill logits differ")
+            copied = to_cpu(card)
+            n, most = differing(copied, cpu_own)
+            for x, y in zip(_cache_leaves(copied), _cache_leaves(cpu_own)):
+                if x.dtype == torch.bfloat16:
+                    # one bf16 ulp, no tighter than 1e-5 of the leaf's
+                    # largest value (the float32 error of a key near 0)
+                    y = y.float()
+                    ulp = torch.exp2(torch.floor(torch.log2(
+                        y.abs().clamp_min(2.0 ** -126))) - 7)
+                    tol = ulp.clamp_min(1e-5 * float(y.abs().max()))
+                    if not ((x.float() - y).abs() <= tol).all():
+                        raise AssertionError("decode: prefill k/v differ "
+                                             "by more than a bf16 ulp")
+            out.update(prefill_first_max_abs=float(
+                (first - cpu_first[:, real]).abs().max()),
+                prefill_cache_entries_differing=n,
+                prefill_cache_max_diff=most)
+            del cpu_own, copied
+        # the float32 forward on the card (the lm phase holds it to the
+        # CPU's), rows P..T-1
+        fwd = lm_forward(cfg, params, {"tokens": toks.to(dev)})[0]
+        fwd = fwd[0, P:, real].cpu()
+        cpu = to_cpu(card)
+        errs, bounds, flips = [], [], []
+        for p in range(P, T):
+            t = toks[:, p:p + 1]
+            same, got = lm_decode_step(cfg, params, card, t.to(dev), p)
+            if same is not card:
+                raise AssertionError("decode: the card's cache was copied")
+            _, want = lm_decode_step(cfg, cpu_params, cpu, t, p)
+            got, want = got[:, real].cpu().double(), want[:, real].double()
+            n, most = differing(to_cpu(card), cpu)
+            err = float((got - want).abs().max())
+            bound = float((want[0] - fwd[p - P].double()).abs().max())
+            if not err <= bound:
+                raise AssertionError(
+                    f"decode: step at {p}: card vs CPU {err}, caches differ "
+                    f"in {n} entries, bound {bound}")
+            errs.append(err)
+            bounds.append(bound)
+            flips.append(n)
+    out.update(card_vs_cpu_max_abs=errs, cpu_decode_vs_forward_max_abs=bounds,
+               cache_entries_differing=flips,
+               cache_max_diff=differing(to_cpu(card), cpu)[1],
+               max_abs_logit=float(fwd.abs().max()))
+    out["caches"] = (card, cpu)
+    return out
+
+
+def timed_decode(cfg, params, B, prefill_len, max_seq, steps,
+                 profile_step=False) -> dict:
+    """``make_prefill_step`` on B seeded prompts, then ``steps`` greedy
+    ``make_decode_step`` calls, each timed on the host clock up to a
+    synchronisation: the median ms a step, tokens/s, the caches' bytes
+    and the peak device memory while decoding."""
+    import torch
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    dev = params["embed"].device
+    prefill = make_prefill_step(cfg, max_seq)
+    decode = make_decode_step(cfg)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, prefill_len)), device=dev)
+    times = []
+    with torch.inference_mode():
+        caches, logits = prefill(params, {"tokens": toks})
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            caches, tok, _ = decode(params, caches, tok, prefill_len + i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not ((0 <= tok).all() and (tok < cfg.vocab_size).all()):
+            raise AssertionError(f"decode: bad greedy tokens {tok}")
+        out = {"batch": B, "prefill": prefill_len, "max_seq": max_seq,
+               "steps": steps, "ms_per_token": float(np.median(times)),
+               "ms_min": min(times), "ms_max": max(times),
+               "tokens_per_s": B / float(np.median(times)) * 1e3,
+               "cache_bytes": sum(t.nbytes for t in _cache_leaves(caches)),
+               "peak_bytes": int(peak)}
+        if profile_step:
+            pos = prefill_len + steps
+            out["profiled_step"] = profiled_call(
+                lambda: decode(params, caches, tok, pos))
+    return out
+
+
+def decode_phase(dev, params) -> None:
+    """Token-by-token serving of smollm-135m at full width (the lm
+    phase's weights) and of gemma3-12b's sliding-window rings at full
+    width, one pattern period deep: card decode held to the CPU's, the
+    bf16 serving steps timed."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.configs.base import LOCAL_ATTN
+    from repro_torch.models import lm_decode_step, lm_forward, lm_prefill, \
+        lm_specs
+    from repro_torch.sharding.api import materialize, num_params, tree_map
+    from repro_torch.train.step import make_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    cpu_params = materialize(lm_specs(cfg), torch.Generator().manual_seed(0),
+                             "cpu")
+    f32 = scaled(cfg, dtype="float32")
+    cut = scaled(f32, num_layers=LM_CUT_LAYERS)
+    T = DECODE_PREFILL + DECODE_STEPS
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, T)))
+    # (i) card vs CPU, LM_CUT_LAYERS deep, bf16 and int8 caches
+    held = {}
+    for label, c in (("bf16_cache", cut),
+                     ("int8_cache", scaled(cut, opt_kv_int8=True))):
+        res = held_decode(c, params, cpu_params, toks, DECODE_PREFILL,
+                          DECODE_MAX_SEQ)
+        res.pop("caches")
+        held[label] = res
+    # (ii) full depth, float32: decode at position T-1 against the full
+    # forward over the same T tokens, on the card and on the CPU
+    to_fwd = {}
+    with torch.inference_mode():
+        for side, p in (("card", params), ("cpu", cpu_params)):
+            d = p["embed"].device
+            caches, _ = lm_prefill(f32, p, {"tokens": toks[:, :DECODE_PREFILL]
+                                            .to(d)}, max_seq=DECODE_MAX_SEQ)
+            for pos in range(DECODE_PREFILL, T):
+                caches, logits = lm_decode_step(f32, p, caches,
+                                                toks[:, pos:pos + 1].to(d),
+                                                pos)
+            full = lm_forward(f32, p, {"tokens": toks.to(d)})[0][:, -1]
+            real = slice(0, cfg.vocab_size)
+            to_fwd[side] = float((logits[:, real].double()
+                                  - full[:, real].double()).abs().max())
+    if not to_fwd["card"] <= LM_F32_SLACK * to_fwd["cpu"] + 1e-6:
+        raise AssertionError(f"decode: full-depth decode vs forward {to_fwd}")
+    del cpu_params
+    # (iii) bf16 serving steps
+    prefill_ms = {}
+    prefill = make_prefill_step(cfg, DECODE_TIMED_MAX_SEQ)
+    for B, S in DECODE_PREFILL_SHAPES:
+        pt = torch.as_tensor(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (B, S)), device=dev)
+        with torch.inference_mode():
+            prefill_ms[f"{B}x{S}"] = cuda_ms(
+                lambda: prefill(params, {"tokens": pt}), runs=5)
+    timed = {}
+    for label, c in (("bf16_cache", cfg),
+                     ("int8_cache", scaled(cfg, opt_kv_int8=True))):
+        for B in DECODE_BATCHES:
+            timed[f"{label}_B{B}"] = timed_decode(
+                c, params, B, DECODE_PREFILL, DECODE_TIMED_MAX_SEQ,
+                DECODE_TIMED_STEPS,
+                profile_step=(label == "bf16_cache" and B == 1))
+    emit({"phase": "decode", "arch": LM_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "vocab": cfg.vocab_size, "f32_cut_layers": LM_CUT_LAYERS,
+          "tol": LM_CUT_TOL, "held": held,
+          "f32_full_depth_decode_vs_forward_max_abs": to_fwd,
+          "slack": LM_F32_SLACK, "bf16_prefill_ms": prefill_ms,
+          "bf16_decode": timed, "seconds": time.perf_counter() - t_phase})
+
+    # (iv) gemma3-12b's rings at full width, one pattern period deep
+    t_ring = time.perf_counter()
+    gcfg = get_config(RING_ARCH)
+    ring = scaled(gcfg, num_layers=RING_LAYERS, dtype="float32")
+    specs = lm_specs(ring)
+    gparams = materialize(specs, torch.Generator(device=dev).manual_seed(5),
+                          dev)                  # drawn on the card: fast
+    gcpu = tree_map(lambda t: t.cpu(), gparams, is_leaf=torch.is_tensor)
+    init_s = time.perf_counter() - t_ring
+    T = RING_PREFILL + RING_STEPS
+    gtoks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, ring.vocab_size, (1, T)))
+    res = held_decode(ring, gparams, gcpu, gtoks, RING_PREFILL, T,
+                      prefill_on_cpu=False)
+    card, cpu = res.pop("caches")
+    W = ring.sliding_window
+    rings = [i for i, kind in enumerate(ring.block_pattern)
+             if kind == LOCAL_ATTN]
+    for i in rings:
+        for c in (card, cpu):
+            if sorted(c["blocks"][i]["pos"][0].tolist()) != list(
+                    range(T - W, T)):
+                raise AssertionError(f"ring {i}: pos is not {T - W}..{T - 1}")
+    emit({"phase": "decode_ring", "arch": RING_ARCH, "layers": RING_LAYERS,
+          "reduced": {"num_layers": [gcfg.num_layers, RING_LAYERS],
+                      "dtype": [gcfg.dtype, "float32"]},
+          "d_model": ring.d_model, "heads": [ring.num_heads,
+                                             ring.num_kv_heads],
+          "head_dim": ring.resolved_head_dim, "window": W,
+          "vocab": ring.vocab_size, "params": num_params(specs),
+          "init_s": init_s, **res,
+          "rings_hold": [T - W, T - 1], "local_blocks": rings,
+          "seconds": time.perf_counter() - t_ring})
+    del gparams, gcpu, card, cpu
+    torch.cuda.empty_cache()
+
+
+def moe_phase(dev) -> None:
+    """granite-moe-1b-a400m at full width: its layer-0 MoE on the card
+    against the CPU (routing, outputs, aux), the scatter dispatch against
+    the one-hot one, bf16 forwards and greedy decode timed."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.models import lm_forward, lm_specs, padded_vocab
+    from repro_torch.models import moe as M
+    from repro_torch.models.attention import attend_full
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.lm import embed_tokens
+    from repro_torch.sharding.api import materialize, num_params, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    f32 = scaled(cfg, dtype="float32")
+    specs = lm_specs(cfg)
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(6),
+                         dev)
+    E, k = cfg.num_experts, cfg.top_k
+    B, S = MOE_CHECK_SHAPE
+    toks = torch.as_tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (B, S)))
+    with torch.inference_mode():
+        # (i) layer 0's MoE input, computed on the CPU
+        prm = tree_map(lambda t: t[0].cpu(), params["blocks"][0],
+                       is_leaf=torch.is_tensor)
+        pos = torch.arange(S, dtype=torch.int32)
+        x = embed_tokens(f32, {"embed": params["embed"].cpu()}, toks, pos)
+        out, _ = attend_full(prm["attn"], f32,
+                             rmsnorm(x, prm["norm1"], f32.norm_eps), pos)
+        x_cpu = rmsnorm(x + out, prm["norm2"], f32.norm_eps)
+        x_card = x_cpu.to(dev)
+        moe_cpu = prm["moe"]
+        moe_card = tree_map(lambda t: t[0], params["blocks"][0]["moe"],
+                            is_leaf=torch.is_tensor)
+        C = M.capacity(f32, S)
+        ti_c, _, aux_c = M._route(moe_cpu, f32, x_cpu)
+        ti_g, _, aux_g = M._route(moe_card, f32, x_card)
+        ti_g = ti_g.cpu()
+        keep_c = M._positions_in_expert(ti_c, E) < C
+        keep_g = M._positions_in_expert(ti_g, E) < C
+        agree = (ti_g == ti_c).all(-1) & (keep_g == keep_c).all(-1)
+        probs_c = torch.softmax(torch.matmul(
+            x_cpu, moe_cpu["router"]).float(), dim=-1)
+        probs_g = torch.softmax(torch.matmul(
+            x_card, moe_card["router"]).float(), dim=-1).cpu()
+        top = torch.sort(probs_c, dim=-1, descending=True).values
+        flipped = (ti_g != ti_c).any(-1)
+        gaps = (top[..., k - 1] - top[..., k])[flipped].tolist()
+        # the card's aux with the CPU's routing: the aux held apart from
+        # the routing flips
+        frac_tokens = torch.nn.functional.one_hot(ti_c, E).float().sum(
+            2).mean((0, 1)) / k
+        aux_held = float(E * torch.sum(frac_tokens * probs_g.mean((0, 1))))
+        if abs(aux_held - float(aux_c)) > MOE_AUX_TOL:
+            raise AssertionError(f"moe: aux {aux_held} vs CPU {float(aux_c)}")
+        y_c, _ = M.moe_apply(moe_cpu, f32, x_cpu)
+        y_g = M.moe_apply(moe_card, f32, x_card)[0].cpu()
+        if not torch.allclose(y_g[agree], y_c[agree], atol=MOE_OUT_TOL,
+                              rtol=MOE_OUT_TOL):
+            raise AssertionError("moe: outputs of agreeing tokens differ")
+        if int(agree.sum()) < S * B // 2:
+            raise AssertionError(f"moe: routing agrees on {int(agree.sum())}")
+        y_s = M.moe_scatter(moe_card, f32, x_card)[0]
+        y_o = M.moe_onehot(moe_card, f32, x_card)[0]
+        if not torch.allclose(y_s, y_o, atol=1e-5, rtol=1e-5):
+            raise AssertionError("moe: scatter and one-hot differ")
+        scatter_ms = cuda_ms(lambda: M.moe_scatter(moe_card, f32, x_card))
+        onehot_ms = cuda_ms(lambda: M.moe_onehot(moe_card, f32, x_card))
+        layer = {
+            "shape": [B, S], "capacity": C,
+            "tokens_routed_alike": int(agree.sum()),
+            "tokens_flipped": int(flipped.sum()),
+            "flipped_kth_gap_cpu": gaps,
+            "dropped_slots_cpu": int((~keep_c).sum()),
+            "out_max_abs_agreeing": float(
+                (y_g[agree] - y_c[agree]).abs().max()),
+            "aux_cpu": float(aux_c), "aux_card": float(aux_g),
+            "aux_card_cpu_routing_diff": abs(aux_held - float(aux_c)),
+            "scatter_vs_onehot_max_abs": float((y_s - y_o).abs().max()),
+            "scatter_ms": scatter_ms, "onehot_ms": onehot_ms}
+        del prm, moe_cpu, x, out
+        # (ii) bf16 forwards
+        real = slice(0, cfg.vocab_size)
+        forwards = {}
+        for Bf, Sf in LM_SHAPES:
+            ft = torch.as_tensor(np.random.default_rng(11).integers(
+                0, cfg.vocab_size, (Bf, Sf)), device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ms = cuda_ms(lambda: lm_forward(cfg, params, {"tokens": ft}),
+                         runs=5)
+            logits, _, aux = lm_forward(cfg, params, {"tokens": ft})
+            peak = torch.cuda.max_memory_allocated(dev)
+            if not (logits.shape == (Bf, Sf, padded_vocab(cfg))
+                    and torch.isfinite(logits[..., real]).all()
+                    and torch.isfinite(aux)):
+                raise AssertionError(f"moe: bad bf16 forward at {Bf}x{Sf}")
+            del logits
+            forwards[f"{Bf}x{Sf}"] = {
+                "ms": ms, "peak_bytes": int(peak),
+                "peak_above_weights_bytes": int(peak - base),
+                "profiled": profiled_call(
+                    lambda: lm_forward(cfg, params, {"tokens": ft}))}
+    # (iii) bf16 prefill, then greedy decode
+    decode = timed_decode(cfg, params, 1, MOE_CHECK_SHAPE[1],
+                          DECODE_TIMED_MAX_SEQ, DECODE_TIMED_STEPS,
+                          profile_step=True)
+    emit({"phase": "moe", "arch": MOE_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "experts": E, "top_k": k, "d_ff": cfg.d_ff,
+          "params": num_params(specs), "tol": MOE_OUT_TOL,
+          "aux_tol": MOE_AUX_TOL, "layer0": layer, "bf16_forward": forwards,
+          "bf16_decode_B1": decode, "seconds": time.perf_counter() - t_phase})
+    del params
+    torch.cuda.empty_cache()
 
 
 def flash_phase(dev, params) -> dict:

@@ -4,7 +4,7 @@ NumPy arrays.
 The reference package exposes its utility model as arrays
 (``UtilityModel.M_pos``/``M_neg``/``norm``/``op``), its session state
 as ``SessionState.as_dict()`` — ``{leaf name: np.ndarray}`` — its
-language model's parameters as a pytree of arrays and its cascade
+language model's parameters and KV caches as pytrees of arrays and its cascade
 scorer's as ``MLPScorer.params`` (``w1``/``b1``/``w2``/``b2``). These
 functions build the port's objects from exactly those arrays, so a
 reference and a port object can start from the same trained model,
@@ -66,17 +66,46 @@ def state_from_numpy(d: Dict[str, np.ndarray],
     return SessionState(**leaves)
 
 
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    """A NumPy array as a tensor of its dtype; bfloat16 (``ml_dtypes``'
+    type, which torch cannot read) goes through its bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.as_tensor(a, device=dev)
+
+
+def _tree_from_numpy(tree, dev: torch.device):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_from_numpy(v, dev) for v in tree)
+    return _tensor(tree, dev)
+
+
 def lm_params_from_numpy(tree, device: DeviceLike = None):
     """The port's language-model parameters from the reference's
     parameter pytree with NumPy leaves (``embed``, ``final_norm``, the
-    ``blocks`` tuple of dicts stacked over the pattern repetitions, an
+    ``blocks`` tuple of dicts stacked over the pattern repetitions — an
+    MoE block's ``moe`` with ``router``/``gate``/``up``/``down`` — an
     optional ``lm_head``), nesting and dtypes kept, on ``device``."""
-    dev = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: lm_params_from_numpy(v, dev) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(lm_params_from_numpy(v, dev) for v in tree)
-    return torch.as_tensor(np.array(tree), device=dev)
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def lm_caches_from_numpy(tree, device: DeviceLike = None):
+    """The port's KV caches from the reference's cache tree with NumPy
+    leaves (``{"blocks": (one dict per pattern entry: k, v, pos[,
+    k_scale, v_scale], each stacked over the repetitions), "cross_kv":
+    None}``), dtypes kept (bf16 and int8 included), on ``device``: the
+    reference's own prefilled cache, ready for ``lm_decode_step``."""
+    if tree.get("cross_kv") is not None:
+        raise NotImplementedError(
+            "cross-attention caches wait for the encoder-decoder path "
+            "(ROADMAP.md Queue 1 item 10.5)")
+    return _tree_from_numpy(tree, resolve_device(device))
 
 
 def scorer_params_from_numpy(params: Dict[str, np.ndarray],
@@ -93,5 +122,6 @@ def scorer_params_from_numpy(params: Dict[str, np.ndarray],
             for k in ("w1", "b1", "w2", "b2")}
 
 
-__all__ = ["lm_params_from_numpy", "model_from_numpy",
-           "scorer_params_from_numpy", "state_from_numpy"]
+__all__ = ["lm_caches_from_numpy", "lm_params_from_numpy",
+           "model_from_numpy", "scorer_params_from_numpy",
+           "state_from_numpy"]

@@ -1,24 +1,37 @@
-"""GQA attention, full-sequence forward: the port of the train/prefill
-part of ``src/repro/models/attention.py``.
+"""GQA attention: full-sequence (train/prefill) and one-token decode
+over KV caches — the port of ``src/repro/models/attention.py``.
 
 Layouts (as in the reference):
   activations x:        (B, S, d)
   q/k/v:                (B, S, n_heads, head_dim)
+  KV cache:             {"k": (B, W, n_kv, hd), "v": same, "pos": (W,) int32}
+      W = max_seq for global layers, the sliding window for local ones.
+      ``pos[slot]`` is the absolute position held by the slot (-1 = empty).
+      An int8 cache adds "k_scale"/"v_scale" (B, W, n_kv) bf16.
   scores:               (B, n_kv, group, S_q, S_k), softmax in fp32.
 
 Attention is computed as the reference computes it, outside any kernel:
-the score product in the activation dtype, then ``.float() * scale``,
-the mask value -1e30, the softmax in float32, and the probabilities cast
-to ``v``'s dtype before the PV product. The flash attention kernel is a
-separate entry point (``repro_torch.kernels.flash_attention``), as in the
-reference; ``cfg.attention_impl`` selects nothing. KV caches,
-``attend_decode`` and int8 KV wait for the decode path (ROADMAP Queue 1
-item 10).
+the score product in the promoted dtype of q and k, then
+``.float() * scale``, the mask value -1e30, the softmax in float32, and
+the probabilities cast to ``v``'s dtype before the PV product. A cache is
+bf16 (or int8) whatever the activation dtype, so in a float32 config the
+decode scores are float32 and its output is bf16, as in the reference.
+The flash attention kernel is a separate entry point
+(``repro_torch.kernels.flash_attention``), as in the reference;
+``cfg.attention_impl`` selects nothing.
+
+Unlike the reference's functional updates, ``prefill_into_cache`` and
+``attend_decode`` write into the caller's cache tensors in place and
+return the same dict: a step costs the new entries, not a copy of the
+cache.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import apply_rope
 from repro_torch.sharding.api import ParamSpec, constrain
 
@@ -82,9 +95,10 @@ def _gqa_scores_softmax_out(q, k, v, mask, scale):
     B, Sq, nq, hd = q.shape
     nkv = k.shape[2]
     g = nq // nkv
+    dt = torch.promote_types(q.dtype, k.dtype)    # as jnp.einsum promotes
     qg = q.reshape(B, Sq, nkv, g, hd).permute(0, 2, 3, 1, 4)  # (B,n,g,Sq,hd)
     kt = k.permute(0, 2, 3, 1).unsqueeze(2)                    # (B,n,1,hd,Sk)
-    scores = torch.matmul(qg, kt).float() * scale              # (B,n,g,Sq,Sk)
+    scores = torch.matmul(qg.to(dt), kt.to(dt)).float() * scale
     scores = torch.where(mask, scores, torch.tensor(
         -1e30, dtype=scores.dtype, device=scores.device))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -143,4 +157,119 @@ def attend_full(params, cfg, x, positions, *, causal=True, window=None,
     return _wo(params, out), (k, v)
 
 
-__all__ = ["Q_CHUNK", "attend_full", "attention_specs"]
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+def _quantize_kv(x):
+    """(..., hd) -> int8 values + per-(token, head) bf16 scale."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q, scale):
+    return q.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
+def init_kv_cache(cfg, batch, max_seq, *, window: Optional[int] = None,
+                  dtype=torch.bfloat16, device: DeviceLike = None):
+    """A zeroed cache on ``device``: a global one (``window`` None) of
+    ``max_seq`` slots whose ``pos`` is ``arange``, or a ring of
+    ``min(window, max_seq)`` empty slots (``pos`` -1)."""
+    dev = resolve_device(device)
+    nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    W = max_seq if window is None else min(window, max_seq)
+    kv_dtype = torch.int8 if cfg.opt_kv_int8 else dtype
+    cache = {"k": torch.zeros((batch, W, nkv, hd), dtype=kv_dtype, device=dev),
+             "v": torch.zeros((batch, W, nkv, hd), dtype=kv_dtype, device=dev)}
+    if window is None:
+        cache["pos"] = torch.arange(W, dtype=torch.int32, device=dev)
+    else:
+        cache["pos"] = torch.full((W,), -1, dtype=torch.int32, device=dev)
+    if cfg.opt_kv_int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((batch, W, nkv), dtype=torch.bfloat16,
+                                      device=dev)
+    return cache
+
+
+def _write(cache, slots, k, v):
+    """k/v (B, n, nkv, hd) into ``slots`` (a slice or an index tensor of
+    n slots), quantized first in an int8 cache; in place."""
+    if "k_scale" in cache:
+        k, ks = _quantize_kv(k)
+        v, vs = _quantize_kv(v)
+        cache["k_scale"][:, slots] = ks
+        cache["v_scale"][:, slots] = vs
+    cache["k"][:, slots] = k.to(cache["k"].dtype)
+    cache["v"][:, slots] = v.to(cache["v"].dtype)
+
+
+def prefill_into_cache(cache, k, v, positions, *, window: Optional[int]):
+    """Write prefill keys/values (B, S, nkv, hd) into ``cache`` in place
+    and return it: a global cache takes them at slots 0..S-1, a ring the
+    last W positions at ``p % W`` (and their positions in ``pos``)."""
+    W = cache["k"].shape[1]
+    if window is None:
+        S = k.shape[1]
+        if S > W:
+            raise ValueError(f"prefill of {S} tokens into a global cache of "
+                             f"{W} slots")
+        _write(cache, slice(0, S), k, v)
+        return cache
+    take = min(k.shape[1], W)                        # keep last W positions
+    p_tail = positions[-take:].to(torch.int32)
+    slots = (p_tail % W).long()
+    _write(cache, slots, k[:, -take:], v[:, -take:])
+    cache["pos"][slots] = p_tail
+    return cache
+
+
+def attend_decode(params, cfg, x, cache, pos, *, window: Optional[int] = None,
+                  cross=False):
+    """One-token decode. x: (B, 1, d); pos: int, the current position.
+
+    Writes the token's k/v (and, in a ring, its position) into ``cache``
+    in place and returns (out (B, 1, d), cache). A global cache holds
+    positions 0..W-1 only: ``pos >= W`` raises ``ValueError`` (the
+    reference clamps the write to the last slot). ``cross=True`` attends
+    to every slot of ``cache`` and writes nothing.
+    """
+    hd = cfg.resolved_head_dim
+    scale = hd ** -0.5
+    pos = int(pos)
+    W = cache["k"].shape[1]
+    if not cross and window is None and not 0 <= pos < W:
+        raise ValueError(f"decode at position {pos} past a global cache of "
+                         f"{W} slots")
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=x.device)
+    q = _project_q(params, x)                        # (B,1,nq,hd)
+    q = apply_rope(q, pos_t, cfg.rope_theta)
+
+    if cross:
+        mask = torch.ones((1, 1, 1, 1, W), dtype=torch.bool, device=x.device)
+        out = _gqa_scores_softmax_out(q, cache["k"], cache["v"], mask, scale)
+        return _wo(params, out), cache
+
+    k_new, v_new = _project_kv(params, x)            # (B,1,nkv,hd)
+    k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
+    slot = pos if window is None else pos % W
+    _write(cache, slice(slot, slot + 1), k_new, v_new)
+    if window is not None:
+        cache["pos"][slot] = pos
+    slot_pos = cache["pos"]
+    valid = (slot_pos >= 0) & (slot_pos <= pos)      # (W,)
+    if "k_scale" in cache:
+        k_att = _dequantize_kv(cache["k"], cache["k_scale"])
+        v_att = _dequantize_kv(cache["v"], cache["v_scale"])
+    else:
+        k_att, v_att = cache["k"], cache["v"]
+    out = _gqa_scores_softmax_out(q, k_att, v_att,
+                                  valid[None, None, None, None], scale)
+    return _wo(params, out), cache
+
+
+__all__ = ["Q_CHUNK", "attend_decode", "attend_full", "attention_specs",
+           "init_kv_cache", "prefill_into_cache"]

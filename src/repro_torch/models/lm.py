@@ -1,19 +1,22 @@
 """Top-level language model: embedding -> block stack -> logits — the
-port of the decoder-only, full-sequence part of
-``src/repro/models/lm.py``.
+port of the decoder-only part of ``src/repro/models/lm.py``: the
+full-sequence forward, prefill and one-token decode over KV caches.
 
 Parameters keep the reference's layout: one period of the block pattern
 (e.g. gemma3's 5 local + 1 global) per entry of ``params["blocks"]``,
-each leaf stacked over the pattern repetitions as ``(reps, ...)``. The
-forward is inference only: a Python loop over the repetitions indexes
-the stacked weights (no scan, no remat). The encoder-decoder path,
-caches, prefill and decode wait for ROADMAP Queue 1 item 10.
+each leaf stacked over the pattern repetitions as ``(reps, ...)``, and
+so do caches: ``{"blocks": (one dict per pattern entry, each leaf
+(reps, ...)), "cross_kv": None}``. The forward is inference only: a
+Python loop over the repetitions indexes the stacked weights and caches
+(no scan, no remat). The encoder-decoder path waits for ROADMAP Queue 1
+item 10.5, the SSM and SHARED_ATTN blocks for items 10.3 and 10.4.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.common import cdtype, rmsnorm, rmsnorm_spec, \
     sinusoidal_pos
@@ -38,12 +41,13 @@ def _check_decoder_only(cfg) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder path is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
+            "(ROADMAP.md Queue 1 item 10.5)")
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
     """Parameter specs of a decoder-only model whose blocks the port
-    builds (dense ``ATTN``/``LOCAL_ATTN``), tied or untied head."""
+    builds (``ATTN``/``LOCAL_ATTN`` with a dense or MoE MLP half), tied or
+    untied head."""
     _check_decoder_only(cfg)
     d, vp = cfg.d_model, padded_vocab(cfg)
     reps = cfg.pattern_repeats
@@ -84,37 +88,102 @@ def logits_fn(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward
+# Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
-def lm_forward(cfg, params, batch, *, want_cache=False,
+def _rep(tree, r):
+    """Repetition ``r`` of a tree stacked over repetitions: views, so an
+    in-place write to a cache leaf lands in the stacked tensor."""
+    return tree_map(lambda a: a[r], tree, is_leaf=torch.is_tensor)
+
+
+def _stack(trees):
+    """Trees of one nesting -> one tree whose leaves are stacked on a new
+    leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in sorted(trees[0])}
+    return torch.stack(trees)
+
+
+def lm_forward(cfg, params, batch, *, want_cache=False, max_seq=None,
                last_logit_only=False):
     """batch: {"tokens": (B, S) integer tensor}.
 
-    Returns (logits, None, aux_loss) — aux is 0 for dense blocks.
-    ``want_cache=True`` raises: caches are not ported yet.
+    Returns (logits, caches, aux_loss): caches is None unless
+    ``want_cache`` (then caches of ``max_seq`` slots, default S, holding
+    the sequence), aux the float32 sum of the MoE blocks' losses (0
+    without experts).
     """
     _check_decoder_only(cfg)
-    if want_cache:
-        raise NotImplementedError(
-            "lm_forward(want_cache=True): KV caches and lm_prefill are not "
-            "ported yet (ROADMAP.md Queue 1 item 10)")
     tokens = batch["tokens"]
     S = tokens.shape[1]
+    max_seq = max_seq or S
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed_tokens(cfg, params, tokens, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = [[] for _ in cfg.block_pattern]
     for r in range(cfg.pattern_repeats):
         for p_idx, kind in enumerate(cfg.block_pattern):
-            prm = tree_map(lambda a: a[r], params["blocks"][p_idx],
-                           is_leaf=torch.is_tensor)
-            x = B.block_apply_full(cfg, kind, prm, x, positions)
+            x, cache, a = B.block_apply_full(
+                cfg, kind, _rep(params["blocks"][p_idx], r), x, positions,
+                want_cache=want_cache, max_seq=max_seq)
+            caches[p_idx].append(cache)
+            aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_logit_only:
         x = x[:, -1:, :]
     logits = logits_fn(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, None, aux
+    out_caches = None
+    if want_cache:
+        out_caches = {"blocks": tuple(_stack(c) for c in caches),
+                      "cross_kv": None}
+    return logits, out_caches, aux
 
 
-__all__ = ["embed_tokens", "lm_forward", "lm_specs", "logits_fn",
-           "padded_vocab"]
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+def lm_prefill(cfg, params, batch, *, max_seq):
+    """Caches of ``max_seq`` slots holding ``batch``'s tokens, and the
+    logits (B, vocab) after the last of them."""
+    logits, caches, _ = lm_forward(cfg, params, batch, want_cache=True,
+                                   max_seq=max_seq, last_logit_only=True)
+    return caches, logits[:, 0, :]
+
+
+def init_caches(cfg, batch_size, max_seq, encoder_seq=None,
+                device: DeviceLike = None):
+    """Empty caches on ``device``, leaves stacked over the pattern
+    repetitions: k/v ``(reps, B, W, nkv, hd)``, ``pos`` ``(reps, W)``."""
+    _check_decoder_only(cfg)
+    dev = resolve_device(device)
+    blocks = tuple(
+        _stack([B.block_init_cache(cfg, kind, batch_size, max_seq, dev)
+                for _ in range(cfg.pattern_repeats)])
+        for kind in cfg.block_pattern)
+    return {"blocks": blocks, "cross_kv": None}
+
+
+def lm_decode_step(cfg, params, caches, tokens, pos):
+    """tokens: (B, 1) integer tensor; pos: int, the current absolute
+    position.
+
+    Updates ``caches`` in place (each block's slot for ``pos``) and
+    returns (caches, logits (B, vocab)), the same caches object.
+    """
+    _check_decoder_only(cfg)
+    pos = int(pos)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=tokens.device)
+    x = embed_tokens(cfg, params, tokens, positions)
+    for r in range(cfg.pattern_repeats):
+        for p_idx, kind in enumerate(cfg.block_pattern):
+            x, _ = B.block_apply_step(
+                cfg, kind, _rep(params["blocks"][p_idx], r), x,
+                _rep(caches["blocks"][p_idx], r), pos)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return caches, logits_fn(cfg, params, x)[:, 0, :]
+
+
+__all__ = ["embed_tokens", "init_caches", "lm_decode_step", "lm_forward",
+           "lm_prefill", "lm_specs", "logits_fn", "padded_vocab"]

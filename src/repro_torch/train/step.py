@@ -1,13 +1,13 @@
-"""Training step functions on ``torch.autograd``.
-
-Only the cascade scorer's step is here (``make_scorer_train_step``); the
-language model's train, prefill and decode steps follow with its KV
-caches and training (ROADMAP.md Queue 1 item 10).
+"""Step functions: the cascade scorer's training step on
+``torch.autograd`` (``make_scorer_train_step``) and the language model's
+serving steps (``make_prefill_step``, ``make_decode_step``). The
+language model's training step waits for ROADMAP.md Queue 1 item 10.6.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import lm_decode_step, lm_prefill
 from repro_torch.sharding.api import tree_leaves, tree_map
 from repro_torch.train.optimizer import AdamW
 
@@ -33,4 +33,22 @@ def make_scorer_train_step(loss_fn, opt: AdamW):
     return scorer_step
 
 
-__all__ = ["make_scorer_train_step"]
+def make_prefill_step(cfg, max_seq: int):
+    def prefill_step(params, batch):
+        return lm_prefill(cfg, params, batch, max_seq=max_seq)
+    return prefill_step
+
+
+def make_decode_step(cfg, sample: bool = False):
+    """Greedy decoding; ``sample`` is accepted and unused, as in the
+    reference."""
+    def serve_step(params, caches, tokens, pos):
+        """One-token decode for a running batch; greedy next token
+        ``(B, 1)`` int32. ``caches`` is updated in place and returned."""
+        caches, logits = lm_decode_step(cfg, params, caches, tokens, pos)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return caches, next_tok, logits
+    return serve_step
+
+
+__all__ = ["make_decode_step", "make_prefill_step", "make_scorer_train_step"]

@@ -72,7 +72,8 @@ def test_new_service_modules_are_in_the_checks():
               "repro_torch.configs.gemma3_12b", "repro_torch.sharding.api",
               "repro_torch.models", "repro_torch.models.common",
               "repro_torch.models.attention", "repro_torch.models.blocks",
-              "repro_torch.models.lm", "repro_torch.convert",
+              "repro_torch.models.lm", "repro_torch.models.moe",
+              "repro_torch.convert",
               "repro_torch.cascade", "repro_torch.cascade.scorer",
               "repro_torch.cascade.fit", "repro_torch.train",
               "repro_torch.train.checkpoint", "repro_torch.train.optimizer",
@@ -80,6 +81,12 @@ def test_new_service_modules_are_in_the_checks():
         assert m in mods
     from repro_torch import convert
     assert "scorer_params_from_numpy" in convert.__all__
+    assert "lm_caches_from_numpy" in convert.__all__
+    from repro_torch import models
+    from repro_torch.train import step
+    assert {"init_caches", "lm_prefill", "lm_decode_step"} <= set(
+        models.__all__)
+    assert {"make_prefill_step", "make_decode_step"} <= set(step.__all__)
 
 
 def test_kernel_libraries_are_keyed_on_every_compiled_file(tmp_path):
