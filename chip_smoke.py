@@ -122,6 +122,24 @@ Phases, each printing one JSON line:
    the CPU's routing within 1e-5; scatter vs one-hot on the card, both
    timed; bf16 forwards at 1 x 64 and 4 x 2048 (ms, peak, one profiled
    forward each) and greedy decode at B = 1;
+8c. ssm — the recurrent, hybrid and encoder-decoder LMs at full width,
+   weights drawn on the card, one line each: xlstm-125m (9 mLSTM + 3
+   sLSTM blocks) — its first pattern period card vs CPU at
+   ``LM_CUT_TOL``, the full depth held to a CPU float64 forward as the lm
+   phase holds smollm, 128 tokens prefilled and 16 teacher-forced steps
+   on both (first period; float32 state leaves within ``LM_CUT_TOL`` of
+   their largest value), decode vs forward at full depth; zamba2-2.7b
+   (45 Mamba2 blocks, one shared attention + MLP block used 9 times) —
+   one pattern period (6 of 54 layers, ``reduced``) copied to the CPU:
+   the float32 forward over whole 256-token chunks held to float64, 512
+   tokens prefilled on the card and 16 steps on both; whisper-tiny (4 +
+   4 layers, 1500 seeded audio frames) — encoder output, cross K/V and
+   logits held to float64 at full depth, 128 tokens prefilled and 16
+   steps on both, ``cross_kv`` unchanged by them; then for each bf16
+   forwards (1 x 64 and, but for whisper, 4 x 2048: ms, peak bytes, one
+   profiled 1 x 64 forward), xlstm's and zamba2's mixers alone at 4 x
+   2048, zamba2's prefill 1 x 512, and greedy decode (xlstm at B = 1 and
+   8, the others at B = 1: ms a token, one profiled step);
 9. flash — the CUDA ``flash_attention`` through its entry points, with
    the launch counter at 0, on (a) layer 0's q, k, v of that full-width
    smollm at 4 x 2048 (projected and roped as ``attend_full`` does,
@@ -199,6 +217,16 @@ RING_ARCH, RING_LAYERS, RING_PREFILL, RING_STEPS = "gemma3-12b", 6, 1000, 40
 # moe phase: granite's layer-0 MoE on MOE_CHECK_SHAPE tokens, card vs CPU
 MOE_ARCH, MOE_CHECK_SHAPE, MOE_OUT_TOL, MOE_AUX_TOL = (
     "granite-moe-1b-a400m", (1, 128), 1e-4, 1e-5)
+# ssm phase: xlstm-125m, zamba2-2.7b and whisper-tiny at full width,
+# SSM_PREFILL[arch] seeded tokens prefilled (zamba2: two 256-token
+# chunks), then SSM_STEPS teacher-forced steps on card and CPU; xlstm's
+# first pattern period and whisper at full depth hold the CPU's prefill
+# too, whisper's self-attention k/v within a bf16 ulp or SSM_KV_FLOOR of
+# the leaf's largest value (4 + 4 layers deep, not 2)
+SSM_XLSTM, SSM_ZAMBA, SSM_WHISPER = "xlstm-125m", "zamba2-2.7b", \
+    "whisper-tiny"
+SSM_PREFILL = {SSM_XLSTM: 128, SSM_ZAMBA: 512, SSM_WHISPER: 128}
+SSM_STEPS, SSM_KV_FLOOR = 16, 1e-4
 FLASH_A = (4, 2048)             # smollm layer 0: batch, sequence
 FLASH_B = (1, 4096)             # gemma3-12b local layer: batch, sequence
 FLASH_C_TAIL = (2, 512, 2048)   # batch, queries at the tail, keys
@@ -633,6 +661,7 @@ def main() -> int:
     params = lm_phase(dev)
     decode_phase(dev, params)
     moe_phase(dev)
+    ssm_phase(dev, smi)
     flash = flash_phase(dev, params)
     del params
 
@@ -1595,7 +1624,8 @@ def _cache_leaves(caches):
 
 
 def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
-                prefill_on_cpu=True) -> dict:
+                prefill_on_cpu=True, extra=None, fwd_toks=None, floor=0.0,
+                kv_floor=1e-5, state_rtol=None) -> dict:
     """Prefill ``toks[:, :n_prefill]`` on the card, copy its caches to the
     CPU, then decode the rest of ``toks`` (teacher-forced) on both. In a
     float32 config a decode step still rounds to bf16 (the cache, the
@@ -1609,7 +1639,14 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
     first logits at ``LM_CUT_TOL``, ``pos`` exact, k/v and scales within
     one bf16 ulp (no tighter than 1e-5 of the leaf's largest value), and
     the count of differing entries and their largest difference
-    reported."""
+    reported. ``extra`` adds CPU batch entries to the prefill and the
+    forward (whisper's ``audio_embed``); ``fwd_toks`` (which start with
+    ``toks``) is what the forward runs over where ``toks`` is not a
+    multiple of the SSM chunk; ``floor`` is the least bound a step is held
+    to, ``kv_floor`` the least k/v tolerance as a share of the leaf's
+    largest value, and with ``state_rtol`` the float32 recurrent state
+    leaves of the two prefills are held within it of the leaf's largest
+    value."""
     import torch
     from repro_torch.models import lm_decode_step, lm_forward, lm_prefill
     from repro_torch.sharding.api import tree_map
@@ -1617,6 +1654,11 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
     real = slice(0, cfg.vocab_size)
     P, T = n_prefill, toks.shape[1]
     out = {"prefill": P, "steps": T - P, "max_seq": max_seq}
+    extra = extra or {}
+
+    def batch(t, device):
+        return {"tokens": t.to(device),
+                **{k: v.to(device) for k, v in extra.items()}}
 
     def to_cpu(tree):
         return tree_map(lambda t: t.cpu(), tree, is_leaf=torch.is_tensor)
@@ -1636,11 +1678,11 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
         return n, most
 
     with torch.inference_mode():
-        card, first = lm_prefill(cfg, params, {"tokens": toks[:, :P].to(dev)},
+        card, first = lm_prefill(cfg, params, batch(toks[:, :P], dev),
                                  max_seq=max_seq)
         if prefill_on_cpu:
             cpu_own, cpu_first = lm_prefill(
-                cfg, cpu_params, {"tokens": toks[:, :P]}, max_seq=max_seq)
+                cfg, cpu_params, batch(toks[:, :P], "cpu"), max_seq=max_seq)
             first = first[:, real].cpu()
             if not torch.allclose(first, cpu_first[:, real], atol=LM_CUT_TOL,
                                   rtol=LM_CUT_TOL):
@@ -1654,10 +1696,15 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
                     y = y.float()
                     ulp = torch.exp2(torch.floor(torch.log2(
                         y.abs().clamp_min(2.0 ** -126))) - 7)
-                    tol = ulp.clamp_min(1e-5 * float(y.abs().max()))
+                    tol = ulp.clamp_min(kv_floor * float(y.abs().max()))
                     if not ((x.float() - y).abs() <= tol).all():
                         raise AssertionError("decode: prefill k/v differ "
                                              "by more than a bf16 ulp")
+                elif state_rtol is not None and x.dtype == torch.float32:
+                    d = float((x - y).abs().max())
+                    if d > state_rtol * float(y.abs().max()):
+                        raise AssertionError(f"decode: prefill state leaf "
+                                             f"differs by {d}")
             out.update(prefill_first_max_abs=float(
                 (first - cpu_first[:, real]).abs().max()),
                 prefill_cache_entries_differing=n,
@@ -1665,8 +1712,9 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
             del cpu_own, copied
         # the float32 forward on the card (the lm phase holds it to the
         # CPU's), rows P..T-1
-        fwd = lm_forward(cfg, params, {"tokens": toks.to(dev)})[0]
-        fwd = fwd[0, P:, real].cpu()
+        fwd = lm_forward(cfg, params, batch(
+            toks if fwd_toks is None else fwd_toks, dev))[0]
+        fwd = fwd[0, P:T, real].cpu()
         cpu = to_cpu(card)
         errs, bounds, flips = [], [], []
         for p in range(P, T):
@@ -1679,7 +1727,7 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
             n, most = differing(to_cpu(card), cpu)
             err = float((got - want).abs().max())
             bound = float((want[0] - fwd[p - P].double()).abs().max())
-            if not err <= bound:
+            if not err <= max(bound, floor):
                 raise AssertionError(
                     f"decode: step at {p}: card vs CPU {err}, caches differ "
                     f"in {n} entries, bound {bound}")
@@ -1687,6 +1735,7 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
             bounds.append(bound)
             flips.append(n)
     out.update(card_vs_cpu_max_abs=errs, cpu_decode_vs_forward_max_abs=bounds,
+               floor=floor,
                cache_entries_differing=flips,
                cache_max_diff=differing(to_cpu(card), cpu)[1],
                max_abs_logit=float(fwd.abs().max()))
@@ -1695,11 +1744,12 @@ def held_decode(cfg, params, cpu_params, toks, n_prefill, max_seq,
 
 
 def timed_decode(cfg, params, B, prefill_len, max_seq, steps,
-                 profile_step=False) -> dict:
-    """``make_prefill_step`` on B seeded prompts, then ``steps`` greedy
-    ``make_decode_step`` calls, each timed on the host clock up to a
-    synchronisation: the median ms a step, tokens/s, the caches' bytes
-    and the peak device memory while decoding."""
+                 profile_step=False, extra=None) -> dict:
+    """``make_prefill_step`` on B seeded prompts (with ``extra``'s batch
+    entries, on the card), then ``steps`` greedy ``make_decode_step``
+    calls, each timed on the host clock up to a synchronisation: the
+    median ms a step, tokens/s, the caches' bytes and the peak device
+    memory while decoding."""
     import torch
     from repro_torch.train.step import make_decode_step, make_prefill_step
     dev = params["embed"].device
@@ -1709,7 +1759,7 @@ def timed_decode(cfg, params, B, prefill_len, max_seq, steps,
         0, cfg.vocab_size, (B, prefill_len)), device=dev)
     times = []
     with torch.inference_mode():
-        caches, logits = prefill(params, {"tokens": toks})
+        caches, logits = prefill(params, {"tokens": toks, **(extra or {})})
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1742,8 +1792,7 @@ def decode_phase(dev, params) -> None:
     import torch
     from repro_torch.configs import get_config, scaled
     from repro_torch.configs.base import LOCAL_ATTN
-    from repro_torch.models import lm_decode_step, lm_forward, lm_prefill, \
-        lm_specs
+    from repro_torch.models import lm_specs
     from repro_torch.sharding.api import materialize, num_params, tree_map
     from repro_torch.train.step import make_prefill_step
 
@@ -1766,22 +1815,8 @@ def decode_phase(dev, params) -> None:
         held[label] = res
     # (ii) full depth, float32: decode at position T-1 against the full
     # forward over the same T tokens, on the card and on the CPU
-    to_fwd = {}
-    with torch.inference_mode():
-        for side, p in (("card", params), ("cpu", cpu_params)):
-            d = p["embed"].device
-            caches, _ = lm_prefill(f32, p, {"tokens": toks[:, :DECODE_PREFILL]
-                                            .to(d)}, max_seq=DECODE_MAX_SEQ)
-            for pos in range(DECODE_PREFILL, T):
-                caches, logits = lm_decode_step(f32, p, caches,
-                                                toks[:, pos:pos + 1].to(d),
-                                                pos)
-            full = lm_forward(f32, p, {"tokens": toks.to(d)})[0][:, -1]
-            real = slice(0, cfg.vocab_size)
-            to_fwd[side] = float((logits[:, real].double()
-                                  - full[:, real].double()).abs().max())
-    if not to_fwd["card"] <= LM_F32_SLACK * to_fwd["cpu"] + 1e-6:
-        raise AssertionError(f"decode: full-depth decode vs forward {to_fwd}")
+    to_fwd = decode_vs_forward(f32, params, cpu_params, toks, DECODE_PREFILL,
+                               1e-6)
     del cpu_params
     # (iii) bf16 serving steps
     prefill_ms = {}
@@ -1963,6 +1998,325 @@ def moe_phase(dev) -> None:
           "bf16_decode_B1": decode, "seconds": time.perf_counter() - t_phase})
     del params
     torch.cuda.empty_cache()
+
+
+def f64_held(fn, cfg, params, cpu_params, batch) -> dict:
+    """``fn(cfg, params, batch)`` (a float32 tensor) on the card and on the
+    CPU, both against the CPU's float64 run of it, as the lm phase holds
+    its logits: the card no farther from float64 than ``LM_F32_SLACK``
+    times the CPU's float32 distance (+1e-6). Returns the three max abs
+    distances and the float64 result's largest magnitude."""
+    import torch
+    from repro_torch.configs import scaled
+    f32 = scaled(cfg, dtype="float32")
+    dev = params["embed"].device
+    with torch.inference_mode():
+        exact = fn(scaled(cfg, dtype="float64"), cpu_params,
+                   batch).double()
+        want = fn(f32, cpu_params, batch).double()
+        got = fn(f32, params, {k: v.to(dev) for k, v in batch.items()}
+                 ).cpu().double()
+    if not (got.shape == want.shape and torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name}: bad card output {got.shape}")
+    out = {"card_vs_cpu": float((got - want).abs().max()),
+           "card_vs_f64": float((got - exact).abs().max()),
+           "cpu_vs_f64": float((want - exact).abs().max()),
+           "max_abs_f64": float(exact.abs().max())}
+    if not out["card_vs_f64"] <= LM_F32_SLACK * out["cpu_vs_f64"] + 1e-6:
+        raise AssertionError(f"{cfg.name}: card float32 {out}")
+    return out
+
+
+def bf16_forwards(cfg, params, shapes, extra=None) -> dict:
+    """bf16 ``lm_forward`` at each (B, S) of ``shapes``: ms (median of
+    CUDA-event calls), peak bytes, finite logits; with ``extra(B)`` the
+    batch's other entries (on the card)."""
+    import torch
+    from repro_torch.models import lm_forward, padded_vocab
+    dev = params["embed"].device
+    out = {}
+    for B, S in shapes:
+        b = {"tokens": torch.as_tensor(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (B, S)), device=dev),
+             **(extra(B) if extra else {})}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: lm_forward(cfg, params, b),
+                         runs=3 if B * S > 4096 else 5, warmup=1)
+            logits = lm_forward(cfg, params, b)[0]
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not (logits.shape == (B, S, padded_vocab(cfg))
+                and torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+            raise AssertionError(f"{cfg.name}: bad bf16 forward {B}x{S}")
+        del logits
+        out[f"{B}x{S}"] = {"ms": ms, "peak_bytes": int(peak),
+                           "peak_above_weights_bytes": int(peak - base)}
+    B, S = shapes[0]
+    b = {"tokens": torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, S)), device=dev),
+         **(extra(B) if extra else {})}
+    out["profiled"] = dict(shape=[B, S], **profiled_call(
+        lambda: lm_forward(cfg, params, b)))
+    return out
+
+
+def mixer_ms(cfg, params, kinds, B, S) -> dict:
+    """Where a bf16 forward's time goes: one block of each kind in
+    ``kinds`` (its first repetition's weights) alone at B x S on seeded
+    inputs, ms a call (CUDA events)."""
+    import torch
+    from repro_torch.models.blocks import block_apply_full
+    dev = params["embed"].device
+    x = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (B, S, cfg.d_model)), dtype=torch.bfloat16, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    out = {}
+    with torch.inference_mode():
+        for p_idx, kind in enumerate(cfg.block_pattern):
+            if kind not in kinds or kind in out:
+                continue
+            prm = (params["shared"] if kind == "shared" else
+                   _rep0(params["blocks"][p_idx]))
+            out[kind] = cuda_ms(lambda: block_apply_full(cfg, kind, prm, x,
+                                                         pos), runs=3,
+                                warmup=1)
+    return out
+
+
+def _rep0(tree):
+    import torch
+    from repro_torch.sharding.api import tree_map
+    return tree_map(lambda t: t[0], tree, is_leaf=torch.is_tensor)
+
+
+def _cut(params, reps):
+    """The first ``reps`` pattern repetitions of stacked LM weights (views;
+    every other tree whole)."""
+    import torch
+    from repro_torch.sharding.api import tree_map
+    return {**params, "blocks": tuple(
+        tree_map(lambda t: t[:reps], b, is_leaf=torch.is_tensor)
+        for b in params["blocks"])}
+
+
+def ssm_phase(dev, smi) -> None:
+    """The recurrent, hybrid and encoder-decoder LMs at full width:
+    xlstm-125m, zamba2-2.7b and whisper-tiny, card against CPU in float32,
+    then bf16 forwards and greedy decode timed; one line each."""
+    import torch
+    for check in (ssm_xlstm, ssm_zamba, ssm_whisper):
+        t0 = time.perf_counter()
+        line = check(dev)
+        emit({"phase": "ssm", "card": smi, **line,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+
+def _draw(cfg, dev, seed):
+    """Seeded full-width weights drawn on the card: (params, count, s)."""
+    import torch
+    from repro_torch.models import lm_specs
+    from repro_torch.sharding.api import materialize, num_params
+    t0 = time.perf_counter()
+    specs = lm_specs(cfg)
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    return params, num_params(specs), time.perf_counter() - t0
+
+
+def _to_cpu(tree):
+    import torch
+    from repro_torch.sharding.api import tree_map
+    return tree_map(lambda t: t.cpu(), tree, is_leaf=torch.is_tensor)
+
+
+def _tokens(cfg, B, S, seed):
+    import torch
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)))
+
+
+def _logits(cfg, p, b):
+    from repro_torch.models import lm_forward
+    return lm_forward(cfg, p, b)[0][..., :cfg.vocab_size]
+
+
+def ssm_xlstm(dev) -> dict:
+    """xlstm-125m (9 mLSTM + 3 sLSTM blocks): its first pattern period card
+    vs CPU at LM_CUT_TOL, the full depth against float64, the first
+    period's prefill and decode held (a step in float32 throughout: held
+    to its decode-phase bound or LM_CUT_TOL), decode vs forward at full
+    depth; bf16 forwards, each mixer alone at 4 x 2048, greedy decode."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    cfg = get_config(SSM_XLSTM)
+    f32 = scaled(cfg, dtype="float32")
+    params, n_params, init_s = _draw(cfg, dev, 13)
+    cpu_params = _to_cpu(params)
+    P = SSM_PREFILL[SSM_XLSTM]
+    toks = _tokens(cfg, 1, P + SSM_STEPS, 14)
+    period = len(cfg.block_pattern)
+    cut = scaled(f32, num_layers=period)
+    with torch.inference_mode():
+        cut_got = _logits(cut, params, {"tokens": toks[:, :P].to(dev)}).cpu()
+        cut_want = _logits(cut, cpu_params, {"tokens": toks[:, :P]})
+    cut_err = float((cut_got - cut_want).abs().max())
+    if not torch.allclose(cut_got, cut_want, atol=LM_CUT_TOL,
+                          rtol=LM_CUT_TOL):
+        raise AssertionError(f"xlstm: first period card vs CPU {cut_err}")
+    full = f64_held(_logits, cfg, params, cpu_params,
+                    {"tokens": toks[:, :P]})
+    held = held_decode(cut, params, cpu_params, toks, P, P + SSM_STEPS,
+                       floor=LM_CUT_TOL, state_rtol=LM_CUT_TOL)
+    held.pop("caches")
+    to_fwd = decode_vs_forward(f32, params, cpu_params, toks, P, LM_CUT_TOL)
+    del cpu_params
+    timed = bf16_forwards(cfg, params, LM_SHAPES)
+    timed["mixers_4x2048_ms"] = mixer_ms(cfg, params, ("mlstm", "slstm"),
+                                         *LM_SHAPES[1])
+    decode = {f"B{B}": timed_decode(cfg, params, B, P, P + DECODE_TIMED_STEPS,
+                                    DECODE_TIMED_STEPS, profile_step=B == 1)
+              for B in DECODE_BATCHES}
+    return {"arch": SSM_XLSTM, "layers": cfg.num_layers,
+            "pattern": list(cfg.block_pattern), "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "vocab": cfg.vocab_size,
+            "params": n_params, "init_s": init_s,
+            "f32_first_period": {"layers": period, "tol": LM_CUT_TOL,
+                                 "card_vs_cpu_max_abs": cut_err},
+            "f32_full_depth_forward": full, "slack": LM_F32_SLACK,
+            "f32_first_period_decode": held,
+            "f32_full_depth_decode_vs_forward_max_abs": to_fwd,
+            "bf16_forward": timed, "bf16_decode": decode}
+
+
+def ssm_zamba(dev) -> dict:
+    """zamba2-2.7b (45 Mamba2 blocks, one shared attention + MLP block used
+    9 times): one pattern period card vs CPU in float32 (the forward over
+    whole chunks against float64, prefill 1 x 512 and decode held); bf16
+    at full depth: forwards, each mixer alone at 4 x 2048, prefill 1 x
+    512, greedy decode."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.train.step import make_prefill_step
+    cfg = get_config(SSM_ZAMBA)
+    params, n_params, init_s = _draw(cfg, dev, 15)
+    period = len(cfg.block_pattern)
+    cut = scaled(cfg, num_layers=period, dtype="float32")
+    card_cut = _cut(params, 1)
+    cpu_cut = _to_cpu(card_cut)
+    P, Q = SSM_PREFILL[SSM_ZAMBA], cfg.ssm_chunk
+    T = P + SSM_STEPS
+    fwd_toks = _tokens(cfg, 1, -(-T // Q) * Q, 16)     # whole chunks
+    toks = fwd_toks[:, :T]
+    fwd = f64_held(_logits, cut, card_cut, cpu_cut, {"tokens": fwd_toks})
+    held = held_decode(cut, card_cut, cpu_cut, toks, P, T,
+                       prefill_on_cpu=False, fwd_toks=fwd_toks)
+    held.pop("caches")
+    del cpu_cut, card_cut
+    timed = bf16_forwards(cfg, params, LM_SHAPES)
+    timed["mixers_4x2048_ms"] = mixer_ms(cfg, params, ("mamba2", "shared"),
+                                         *LM_SHAPES[1])
+    pt = _tokens(cfg, 1, P, 17).to(dev)
+    prefill = make_prefill_step(cfg, DECODE_TIMED_MAX_SEQ)
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": pt}), runs=5)
+    decode = timed_decode(cfg, params, 1, P, DECODE_TIMED_MAX_SEQ,
+                          DECODE_TIMED_STEPS, profile_step=True)
+    return {"arch": SSM_ZAMBA, "layers": cfg.num_layers,
+            "pattern": list(cfg.block_pattern), "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "ssm_heads": cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+            "ssm_state": cfg.ssm_state, "d_ff": cfg.d_ff, "chunk": Q,
+            "vocab": cfg.vocab_size, "params": n_params, "init_s": init_s,
+            "reduced": {"f32_card_vs_cpu_num_layers": [cfg.num_layers,
+                                                       period]},
+            "f32_forward": dict(fwd, tokens=int(fwd_toks.shape[1])),
+            "slack": LM_F32_SLACK, "f32_decode": held,
+            "bf16_forward": timed, "bf16_prefill_ms": {f"1x{P}": prefill_ms},
+            "bf16_decode_B1": decode}
+
+
+def ssm_whisper(dev) -> dict:
+    """whisper-tiny (4 encoder + 4 decoder layers, 1500 stub audio frames):
+    encoder output, cross K/V and logits at full depth, card and CPU
+    against float64; prefill and decode held, ``cross_kv`` unchanged by
+    the steps; bf16 forward and greedy decode timed."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.models.lm import _cross_kv, encode
+    cfg = get_config(SSM_WHISPER)
+    f32 = scaled(cfg, dtype="float32")
+    params, n_params, init_s = _draw(cfg, dev, 18)
+    cpu_params = _to_cpu(params)
+    P = SSM_PREFILL[SSM_WHISPER]
+    toks = _tokens(cfg, 1, P + SSM_STEPS, 19)
+
+    def audio(B, device="cpu"):
+        return torch.as_tensor(np.random.default_rng(20).standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32,
+            device=device)
+
+    def enc(c, p, b):
+        return encode(c, p, b["audio_embed"])
+
+    def cross(c, p, b):
+        kv = _cross_kv(c, p["cross"], encode(c, p, b["audio_embed"]))
+        return torch.stack([kv["k"], kv["v"]])
+
+    ae = audio(1)
+    checks = {name: f64_held(fn, cfg, params, cpu_params,
+                             {"tokens": toks[:, :P], "audio_embed": ae})
+              for name, fn in (("encoder_out", enc), ("cross_kv", cross),
+                               ("logits", _logits))}
+    held = held_decode(f32, params, cpu_params, toks, P, P + SSM_STEPS,
+                       extra={"audio_embed": ae}, kv_floor=SSM_KV_FLOOR)
+    card, cpu = held.pop("caches")
+    if not (card["cross_kv"]["k"].dtype == torch.float32
+            and torch.equal(card["cross_kv"]["k"].cpu(),
+                            cpu["cross_kv"]["k"])):
+        raise AssertionError("whisper: cross_kv changed while decoding")
+    del cpu_params, card, cpu
+    timed = bf16_forwards(cfg, params, LM_SHAPES[:1],
+                          extra=lambda B: {"audio_embed": audio(B, dev)})
+    decode = timed_decode(cfg, params, 1, LM_SHAPES[0][1],
+                          DECODE_TIMED_MAX_SEQ // 4, DECODE_TIMED_STEPS,
+                          profile_step=True,
+                          extra={"audio_embed": audio(1, dev)})
+    return {"arch": SSM_WHISPER,
+            "layers": [cfg.encoder_layers, cfg.num_layers],
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "encoder_seq": cfg.encoder_seq, "vocab": cfg.vocab_size,
+            "params": n_params, "init_s": init_s,
+            "f32_full_depth": checks, "slack": LM_F32_SLACK,
+            "f32_decode": held, "bf16_forward": timed,
+            "bf16_decode_B1": decode}
+
+
+def decode_vs_forward(cfg, params, cpu_params, toks, P, floor) -> dict:
+    """Prefill ``P`` tokens, decode the rest, and the last step's logits
+    against the full forward over ``toks``, on the card and on the CPU;
+    the card within ``LM_F32_SLACK`` times the CPU's distance plus
+    ``floor``."""
+    import torch
+    from repro_torch.models import lm_decode_step, lm_forward, lm_prefill
+    out = {}
+    real = slice(0, cfg.vocab_size)
+    with torch.inference_mode():
+        for side, p in (("card", params), ("cpu", cpu_params)):
+            d = p["embed"].device
+            caches, _ = lm_prefill(cfg, p, {"tokens": toks[:, :P].to(d)},
+                                   max_seq=toks.shape[1])
+            for pos in range(P, toks.shape[1]):
+                caches, last = lm_decode_step(cfg, p, caches,
+                                              toks[:, pos:pos + 1].to(d), pos)
+            full = lm_forward(cfg, p, {"tokens": toks.to(d)})[0][:, -1]
+            out[side] = float((last[:, real].double()
+                               - full[:, real].double()).abs().max())
+    if not out["card"] <= LM_F32_SLACK * out["cpu"] + floor:
+        raise AssertionError(f"{cfg.name}: decode vs forward {out}")
+    return out
 
 
 def flash_phase(dev, params) -> dict:

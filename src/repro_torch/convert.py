@@ -90,21 +90,21 @@ def lm_params_from_numpy(tree, device: DeviceLike = None):
     """The port's language-model parameters from the reference's
     parameter pytree with NumPy leaves (``embed``, ``final_norm``, the
     ``blocks`` tuple of dicts stacked over the pattern repetitions — an
-    MoE block's ``moe`` with ``router``/``gate``/``up``/``down`` — an
-    optional ``lm_head``), nesting and dtypes kept, on ``device``."""
+    attention block's ``attn`` with an ``mlp`` or ``moe``, a recurrent
+    block's ``mixer``, ``{}`` at a SHARED_ATTN entry — an optional
+    ``lm_head``, ``shared``, ``encoder`` and ``cross``), nesting and
+    dtypes kept, on ``device``."""
     return _tree_from_numpy(tree, resolve_device(device))
 
 
 def lm_caches_from_numpy(tree, device: DeviceLike = None):
-    """The port's KV caches from the reference's cache tree with NumPy
-    leaves (``{"blocks": (one dict per pattern entry: k, v, pos[,
-    k_scale, v_scale], each stacked over the repetitions), "cross_kv":
-    None}``), dtypes kept (bf16 and int8 included), on ``device``: the
-    reference's own prefilled cache, ready for ``lm_decode_step``."""
-    if tree.get("cross_kv") is not None:
-        raise NotImplementedError(
-            "cross-attention caches wait for the encoder-decoder path "
-            "(ROADMAP.md Queue 1 item 10.5)")
+    """The port's caches from the reference's cache tree with NumPy
+    leaves (``{"blocks": (one dict per pattern entry, each leaf stacked
+    over the repetitions: an attention block's k, v, pos[, k_scale,
+    v_scale], a Mamba2 block's s, conv, an mLSTM block's C, n, m, an
+    sLSTM block's c, n, h, m), "cross_kv": None or {"k", "v"}}``), dtypes
+    kept (bf16 and int8 included), on ``device``: the reference's own
+    prefilled cache, ready for ``lm_decode_step``."""
     return _tree_from_numpy(tree, resolve_device(device))
 
 

@@ -59,11 +59,16 @@ def apply_rope(x, positions, theta: float):
 
 
 def sinusoidal_pos(positions, d_model: int):
-    """positions: (...,) -> (..., d_model) float32 sinusoidal embeddings."""
+    """positions: (...,) -> (..., d_model) float32 sinusoidal embeddings.
+
+    The frequencies are computed on the host in float64 and rounded once
+    to float32, so that every device gets the same bits: a last-bit
+    difference of a device's float32 ``exp`` moves the angle at position
+    1500 (whisper's encoder) by ~1e-4."""
     half = d_model // 2
     freqs = torch.exp(-math.log(10000.0) * torch.arange(
-        half, dtype=torch.float32, device=positions.device) / max(1, half - 1))
-    ang = positions[..., None].float() * freqs
+        half, dtype=torch.float64) / max(1, half - 1)).float()
+    ang = positions[..., None].float() * freqs.to(positions.device)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

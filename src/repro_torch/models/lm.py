@@ -1,25 +1,32 @@
 """Top-level language model: embedding -> block stack -> logits — the
-port of the decoder-only part of ``src/repro/models/lm.py``: the
-full-sequence forward, prefill and one-token decode over KV caches.
+port of ``src/repro/models/lm.py``: the full-sequence forward, prefill
+and one-token decode over caches, for every block kind and for the
+encoder-decoder path.
 
 Parameters keep the reference's layout: one period of the block pattern
-(e.g. gemma3's 5 local + 1 global) per entry of ``params["blocks"]``,
-each leaf stacked over the pattern repetitions as ``(reps, ...)``, and
-so do caches: ``{"blocks": (one dict per pattern entry, each leaf
-(reps, ...)), "cross_kv": None}``. The forward is inference only: a
-Python loop over the repetitions indexes the stacked weights and caches
-(no scan, no remat). The encoder-decoder path waits for ROADMAP Queue 1
-item 10.5, the SSM and SHARED_ATTN blocks for items 10.3 and 10.4.
+(e.g. gemma3's 5 local + 1 global, zamba2's 5 Mamba2 + 1 shared) per
+entry of ``params["blocks"]``, each leaf stacked over the pattern
+repetitions as ``(reps, ...)``, and so do caches: ``{"blocks": (one dict
+per pattern entry, each leaf (reps, ...)), "cross_kv": None or {"k", "v"}
+(num_layers, B, T, nkv, hd)}``. A ``SHARED_ATTN`` entry of ``blocks`` is
+``{}``: its one weight-tied tree is ``params["shared"]``, used by every
+repetition, while its cache is per repetition. Encoder-decoder (whisper)
+adds ``params["encoder"]`` (stacked blocks, final norm) and
+``params["cross"]`` (one cross-attention per decoder layer, stacked).
+The forward is inference only: a Python loop over the repetitions
+indexes the stacked weights and caches (no scan, no remat).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHARED_ATTN, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.common import cdtype, rmsnorm, rmsnorm_spec, \
-    sinusoidal_pos
+from repro_torch.models.attention import attend_decode, attend_full, \
+    attention_specs, _proj
+from repro_torch.models.common import cdtype, mlp, mlp_specs, rmsnorm, \
+    rmsnorm_spec, sinusoidal_pos
 from repro_torch.sharding.api import ParamSpec, constrain, tree_map, \
     tree_map_specs
 
@@ -37,18 +44,10 @@ def _stack_specs(tree, reps: int):
                             init=s.init, dtype=s.dtype, scale=s.scale), tree)
 
 
-def _check_decoder_only(cfg) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder path is not ported yet "
-            "(ROADMAP.md Queue 1 item 10.5)")
-
-
 def lm_specs(cfg: ModelConfig) -> dict:
-    """Parameter specs of a decoder-only model whose blocks the port
-    builds (``ATTN``/``LOCAL_ATTN`` with a dense or MoE MLP half), tied or
-    untied head."""
-    _check_decoder_only(cfg)
+    """Parameter specs, the reference's tree: ``embed``, ``final_norm``,
+    ``blocks`` (``{}`` at a SHARED_ATTN entry), an untied ``lm_head``,
+    ``shared`` (SHARED_ATTN), ``encoder`` and ``cross`` (encoder-decoder)."""
     d, vp = cfg.d_model, padded_vocab(cfg)
     reps = cfg.pattern_repeats
     d_axis = "table_d" if cfg.opt_head_nofsdp else "embed"
@@ -56,10 +55,25 @@ def lm_specs(cfg: ModelConfig) -> dict:
         "embed": ParamSpec((vp, d), ("vocab", d_axis), scale=0.02),
         "final_norm": rmsnorm_spec(d),
         "blocks": tuple(_stack_specs(B.block_specs(cfg, kind), reps)
+                        if kind != SHARED_ATTN else {}
                         for kind in cfg.block_pattern),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, vp), (d_axis, "vocab"), scale=0.02)
+    if SHARED_ATTN in cfg.block_pattern:
+        specs["shared"] = B.block_specs(cfg, SHARED_ATTN)
+    if cfg.is_encoder_decoder:
+        enc_block = {
+            "norm1": rmsnorm_spec(d), "attn": attention_specs(cfg),
+            "norm2": rmsnorm_spec(d), "mlp": mlp_specs(d, cfg.d_ff),
+        }
+        specs["encoder"] = {
+            "blocks": _stack_specs(enc_block, cfg.encoder_layers),
+            "final_norm": rmsnorm_spec(d),
+        }
+        cross_block = {"norm_cross": rmsnorm_spec(d),
+                       "cross": attention_specs(cfg, cross=True)}
+        specs["cross"] = _stack_specs(cross_block, cfg.num_layers)
     return specs
 
 
@@ -88,7 +102,7 @@ def logits_fn(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Encoder (whisper)
 # ---------------------------------------------------------------------------
 
 def _rep(tree, r):
@@ -96,6 +110,48 @@ def _rep(tree, r):
     in-place write to a cache leaf lands in the stacked tensor."""
     return tree_map(lambda a: a[r], tree, is_leaf=torch.is_tensor)
 
+
+def encode(cfg, params, audio_embed):
+    """audio_embed: (B, T, d) precomputed frontend stub output."""
+    enc = params["encoder"]
+    T = audio_embed.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=audio_embed.device)
+    x = audio_embed.to(cdtype(cfg))
+    x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)[None]
+    for r in range(cfg.encoder_layers):
+        prm = _rep(enc["blocks"], r)
+        h = rmsnorm(x, prm["norm1"], cfg.norm_eps)
+        out, _ = attend_full(prm["attn"], cfg, h, positions, causal=False)
+        x = x + out
+        x = x + mlp(prm["mlp"], rmsnorm(x, prm["norm2"], cfg.norm_eps))
+    return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _cross_kv(cfg, cross_params, encoder_out):
+    """Cross-attention K/V of every decoder layer, stacked:
+    {"k", "v"} (num_layers, B, T, nkv, hd) in the encoder output's
+    dtype."""
+    ks, vs = [], []
+    for r in range(cross_params["cross"]["wk"].shape[0]):
+        prm = _rep(cross_params["cross"], r)
+        ks.append(_proj(encoder_out, prm["wk"]))
+        vs.append(_proj(encoder_out, prm["wv"]))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _apply_cross(cfg, prm, x, cross_kv, positions):
+    h = rmsnorm(x, prm["norm_cross"], cfg.norm_eps)
+    T = cross_kv["k"].shape[1]
+    kv_pos = torch.arange(T, dtype=torch.int32, device=x.device)
+    out, _ = attend_full(prm["cross"], cfg, h, positions, causal=False,
+                         kv_override=(cross_kv["k"], cross_kv["v"]),
+                         kv_positions=kv_pos)
+    return x + out
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
 
 def _stack(trees):
     """Trees of one nesting -> one tree whose leaves are stacked on a new
@@ -105,30 +161,48 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _block_params(params, kind, p_idx, r):
+    """Repetition ``r``'s parameters of pattern entry ``p_idx``: the one
+    shared tree for a SHARED_ATTN entry."""
+    if kind == SHARED_ATTN:
+        return params["shared"]
+    return _rep(params["blocks"][p_idx], r)
+
+
 def lm_forward(cfg, params, batch, *, want_cache=False, max_seq=None,
                last_logit_only=False):
-    """batch: {"tokens": (B, S) integer tensor}.
+    """batch: {"tokens": (B, S) integer tensor [, "audio_embed": (B, T, d)
+    for an encoder-decoder config]}.
 
     Returns (logits, caches, aux_loss): caches is None unless
     ``want_cache`` (then caches of ``max_seq`` slots, default S, holding
-    the sequence), aux the float32 sum of the MoE blocks' losses (0
-    without experts).
+    the sequence, and the encoder's ``cross_kv``), aux the float32 sum of
+    the MoE blocks' losses (0 without experts).
     """
-    _check_decoder_only(cfg)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     max_seq = max_seq or S
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed_tokens(cfg, params, tokens, positions)
+    cross_kv = None
+    if cfg.is_encoder_decoder:
+        if len(cfg.block_pattern) != 1:   # cross params/K/V are per layer
+            raise ValueError(f"{cfg.name}: an encoder-decoder pattern has "
+                             "one block kind")
+        cross_kv = _cross_kv(cfg, params["cross"],
+                             encode(cfg, params, batch["audio_embed"]))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [[] for _ in cfg.block_pattern]
     for r in range(cfg.pattern_repeats):
         for p_idx, kind in enumerate(cfg.block_pattern):
             x, cache, a = B.block_apply_full(
-                cfg, kind, _rep(params["blocks"][p_idx], r), x, positions,
-                want_cache=want_cache, max_seq=max_seq)
+                cfg, kind, _block_params(params, kind, p_idx, r), x,
+                positions, want_cache=want_cache, max_seq=max_seq)
             caches[p_idx].append(cache)
             aux = aux + a
+        if cross_kv is not None:
+            x = _apply_cross(cfg, _rep(params["cross"], r), x,
+                             _rep(cross_kv, r), positions)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_logit_only:
         x = x[:, -1:, :]
@@ -136,7 +210,7 @@ def lm_forward(cfg, params, batch, *, want_cache=False, max_seq=None,
     out_caches = None
     if want_cache:
         out_caches = {"blocks": tuple(_stack(c) for c in caches),
-                      "cross_kv": None}
+                      "cross_kv": cross_kv}
     return logits, out_caches, aux
 
 
@@ -155,35 +229,51 @@ def lm_prefill(cfg, params, batch, *, max_seq):
 def init_caches(cfg, batch_size, max_seq, encoder_seq=None,
                 device: DeviceLike = None):
     """Empty caches on ``device``, leaves stacked over the pattern
-    repetitions: k/v ``(reps, B, W, nkv, hd)``, ``pos`` ``(reps, W)``."""
-    _check_decoder_only(cfg)
+    repetitions (k/v ``(reps, B, W, nkv, hd)``, ``pos`` ``(reps, W)``, a
+    recurrent state's leaves ``(reps, B, ...)``); an encoder-decoder
+    config's ``cross_kv`` is bf16 zeros ``(num_layers, B, T, nkv, hd)``,
+    T = ``encoder_seq`` or ``cfg.encoder_seq``."""
     dev = resolve_device(device)
     blocks = tuple(
         _stack([B.block_init_cache(cfg, kind, batch_size, max_seq, dev)
                 for _ in range(cfg.pattern_repeats)])
         for kind in cfg.block_pattern)
-    return {"blocks": blocks, "cross_kv": None}
+    cross_kv = None
+    if cfg.is_encoder_decoder:
+        shape = (cfg.num_layers, batch_size, encoder_seq or cfg.encoder_seq,
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        cross_kv = {name: torch.zeros(shape, dtype=torch.bfloat16,
+                                      device=dev) for name in ("k", "v")}
+    return {"blocks": blocks, "cross_kv": cross_kv}
 
 
 def lm_decode_step(cfg, params, caches, tokens, pos):
     """tokens: (B, 1) integer tensor; pos: int, the current absolute
     position.
 
-    Updates ``caches`` in place (each block's slot for ``pos``) and
-    returns (caches, logits (B, vocab)), the same caches object.
+    Updates ``caches`` in place (each attention block's slot for ``pos``,
+    each recurrent block's state) and returns (caches, logits (B,
+    vocab)), the same caches object.
     """
-    _check_decoder_only(cfg)
     pos = int(pos)
     positions = torch.full((1,), pos, dtype=torch.int32, device=tokens.device)
     x = embed_tokens(cfg, params, tokens, positions)
     for r in range(cfg.pattern_repeats):
         for p_idx, kind in enumerate(cfg.block_pattern):
             x, _ = B.block_apply_step(
-                cfg, kind, _rep(params["blocks"][p_idx], r), x,
+                cfg, kind, _block_params(params, kind, p_idx, r), x,
                 _rep(caches["blocks"][p_idx], r), pos)
+        if cfg.is_encoder_decoder:
+            prm = _rep(params["cross"], r)
+            h = rmsnorm(x, prm["norm_cross"], cfg.norm_eps)
+            out, _ = attend_decode(prm["cross"], cfg, h,
+                                   _rep(caches["cross_kv"], r), pos,
+                                   cross=True)
+            x = x + out
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return caches, logits_fn(cfg, params, x)[:, 0, :]
 
 
-__all__ = ["embed_tokens", "init_caches", "lm_decode_step", "lm_forward",
-           "lm_prefill", "lm_specs", "logits_fn", "padded_vocab"]
+__all__ = ["embed_tokens", "encode", "init_caches", "lm_decode_step",
+           "lm_forward", "lm_prefill", "lm_specs", "logits_fn",
+           "padded_vocab"]

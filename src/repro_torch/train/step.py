@@ -1,7 +1,9 @@
 """Step functions: the cascade scorer's training step on
 ``torch.autograd`` (``make_scorer_train_step``) and the language model's
-serving steps (``make_prefill_step``, ``make_decode_step``). The
-language model's training step waits for ROADMAP.md Queue 1 item 10.6.
+serving steps (``make_prefill_step``, ``make_decode_step``) for every
+config, an encoder-decoder one with ``batch["audio_embed"]`` at prefill.
+The language model's training step waits for ROADMAP.md Queue 1 item
+10.6.
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ from repro_torch.train.step import make_decode_step, make_prefill_step
 pytestmark = pytest.mark.cuda
 
 TOL, PREFILL, STEPS, MAX_SEQ = 1e-4, 20, 8, 32
+FAMILY_TOL = {"zamba2-2.7b": 5e-4}
 
 
 def _card():
@@ -120,3 +121,59 @@ def test_init_caches_honours_the_device_and_steps_serve_greedy_tokens():
             assert tok.shape == (2, 1) and torch.isfinite(logits).all()
         assert sorted(caches["blocks"][0]["pos"][0].tolist()) == list(
             range(PREFILL + STEPS - cfg.sliding_window, PREFILL + STEPS))
+
+
+def _family_batch(cfg, dev, S):
+    """Seeded tokens (2, S), and for an encoder-decoder config the stub
+    audio embeddings (2, encoder_seq, d), on ``dev``."""
+    rng = np.random.default_rng(2)
+    b = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, S)))}
+    if cfg.is_encoder_decoder:
+        b["audio_embed"] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32)
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b",
+                                  "whisper-tiny"])
+def test_recurrent_hybrid_and_encoder_decoder_decode_on_the_card(arch):
+    """The recurrent (xlstm), hybrid (zamba2: Mamba2 + the shared block)
+    and encoder-decoder (whisper) smoke configs in float32, card against
+    CPU: the forward's logits within ``FAMILY_TOL`` (zamba2's Mamba2
+    chunks subtract cumulative log decays of ~500, where one float32 last
+    bit of ``dt`` moves outputs by ~1e-5 relative a layer); a prefill of
+    16 tokens (one chunk) on the card; then 8 teacher-forced steps on
+    both from the card's caches copied to the CPU, the card's caches
+    updated in place (the same tensors), each step's logits no farther
+    from the CPU's than the CPU's decode is from its full forward over
+    the same tokens, or ``TOL`` where that is smaller (xlstm decodes in
+    float32 throughout)."""
+    dev = _card()
+    cfg = scaled(get_smoke_config(arch), dtype="float32")
+    cpu = materialize(lm_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    card = _to(cpu, dev)
+    P = 16
+    batch = _family_batch(cfg, "cpu", 32)       # two chunks of 16
+    with torch.inference_mode():
+        full = lm_forward(cfg, cpu, batch)[0]
+        got = lm_forward(cfg, card, _to(batch, dev))[0].cpu()
+        V = cfg.vocab_size
+        tol = FAMILY_TOL.get(arch, TOL)
+        torch.testing.assert_close(got[..., :V], full[..., :V], atol=tol,
+                                   rtol=tol)
+        pre = {**batch, "tokens": batch["tokens"][:, :P]}
+        gc, _ = lm_prefill(cfg, card, _to(pre, dev), max_seq=MAX_SEQ)
+        assert all(t.device == dev for t in _leaves(gc))
+        cc = _to(gc, "cpu")
+        ptrs = [t.data_ptr() for t in _leaves(gc)]
+        before = [t.clone() for t in _leaves(gc)]
+        toks = batch["tokens"]
+        for pos in range(P, P + STEPS):
+            t = toks[:, pos:pos + 1]
+            out, got = lm_decode_step(cfg, card, gc, t.to(dev), pos)
+            _, want = lm_decode_step(cfg, cpu, cc, t, pos)
+            assert out is gc and [x.data_ptr() for x in _leaves(gc)] == ptrs
+            bound = max(float((want - full[:, pos]).abs().max()), TOL)
+            assert float((got.cpu() - want).abs().max()) <= bound
+        assert all(not torch.equal(a, b) for a, b in zip(
+            _leaves(gc), before) if a.dtype != torch.int32)

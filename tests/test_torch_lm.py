@@ -115,11 +115,10 @@ def test_last_logit_only_is_the_last_row():
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_config_bookkeeping_matches_reference(arch):
-    """All ten configs: the analytic count, the padded vocabulary and —
-    for every config whose blocks the port builds (attention blocks with
-    a dense or MoE MLP half) — the count of its parameter specs equal the
-    reference's; the others raise NotImplementedError naming the ROADMAP
-    item."""
+    """All ten configs: the analytic count, the padded vocabulary and the
+    count of the parameter specs (attention, MoE, recurrent and shared
+    blocks, the encoder and cross-attention trees) equal the
+    reference's."""
     jc, tc = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert tc == tconfigs.ModelConfig(**{
         f: getattr(jc, f) for f in jc.__dataclass_fields__})
@@ -127,36 +126,8 @@ def test_config_bookkeeping_matches_reference(arch):
     assert tlm.padded_vocab(tc) == jlm.padded_vocab(jc)
     assert tconfigs.get_smoke_config(arch).num_params() == \
         jconfigs.get_smoke_config(arch).num_params()
-    want = japi.num_params(jlm.lm_specs(jc))
-    ported = (not jc.is_encoder_decoder
-              and set(jc.block_pattern) <= {"attn", "local"})
-    if ported:
-        assert tapi.num_params(tlm.lm_specs(tc)) == want
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.lm_specs(tc)
-
-
-def test_unported_paths_raise():
-    """What the port does not build yet raises, naming its ROADMAP item:
-    the encoder-decoder path (whisper, 10.5), the recurrent blocks
-    (xlstm, zamba2's mamba2: 10.3) and the SHARED_ATTN kind (10.4)."""
-    import repro_torch.models.blocks as tblocks
-    _, tc, _, tp = _params("smollm-135m")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    whisper = tconfigs.get_smoke_config("whisper-tiny")
-    for call in (lambda: tlm.lm_forward(whisper, tp, {"tokens": toks}),
-                 lambda: tlm.init_caches(whisper, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 10.5"):
-            call()
-    for arch in ("xlstm-125m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="item 10.3"):
-            tlm.lm_specs(tconfigs.get_smoke_config(arch))
-    zamba = tconfigs.get_smoke_config("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        tblocks.block_specs(zamba, "shared")
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        tblocks.block_init_cache(zamba, "shared", 1, 8, device="cpu")
+    assert tapi.num_params(tlm.lm_specs(tc)) == \
+        japi.num_params(jlm.lm_specs(jc))
 
 
 def _rng_t(rng, shape, dtype=torch.float32, scale=1.0):

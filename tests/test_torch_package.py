@@ -73,6 +73,7 @@ def test_new_service_modules_are_in_the_checks():
               "repro_torch.models", "repro_torch.models.common",
               "repro_torch.models.attention", "repro_torch.models.blocks",
               "repro_torch.models.lm", "repro_torch.models.moe",
+              "repro_torch.models.ssm",
               "repro_torch.convert",
               "repro_torch.cascade", "repro_torch.cascade.scorer",
               "repro_torch.cascade.fit", "repro_torch.train",
