@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path, its LM backend and its kernels
-once on one CUDA card.
+"""Drive the PyTorch port's serve path, its LM backend, its training
+path and its kernels once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -140,6 +140,22 @@ Phases, each printing one JSON line:
    profiled 1 x 64 forward), xlstm's and zamba2's mixers alone at 4 x
    2048, zamba2's prefill 1 x 512, and greedy decode (xlstm at B = 1 and
    8, the others at B = 1: ms a token, one profiled step);
+8d. train — the training path, one line a part: (a) smollm-135m at full
+   width, 2 layers, float32: one ``make_train_step`` card vs CPU, both
+   held to a float64 step (``held_train_step``); (b)
+   ``launch.train.main`` at full depth (40 steps of 8 x 256, bf16
+   compute, a fault injected at step 25, checkpoints every 10 steps):
+   one restart, the last checkpoint at step 40, the loss falling; ms a
+   step, tokens/s, peak bytes, checkpoint save and restore seconds, one
+   profiled step; (c) remat "block" against "none" at full depth, loss
+   and gradients bit for bit, and the peak bytes of each; (d)
+   ``make_dp_compressed_train_step`` over 4 pods of the card, int8 and
+   top-k, 3 steps held to the CPU, the error-feedback sums exact to
+   1e-5; (e) ``make_pp_loss`` over 3 stages of the card, 30 layers in
+   float32, 6 microbatches, within 1e-5 of the unpipelined loss over
+   the same microbatches, every stage with a gradient; (f) granite-moe,
+   xlstm, zamba2 and whisper at full width, one pattern period deep:
+   one float32 step held as (a), one step in their own dtype;
 9. flash — the CUDA ``flash_attention`` through its entry points, with
    the launch counter at 0, on (a) layer 0's q, k, v of that full-width
    smollm at 4 x 2048 (projected and roped as ``attend_full`` does,
@@ -227,6 +243,34 @@ SSM_XLSTM, SSM_ZAMBA, SSM_WHISPER = "xlstm-125m", "zamba2-2.7b", \
     "whisper-tiny"
 SSM_PREFILL = {SSM_XLSTM: 128, SSM_ZAMBA: 512, SSM_WHISPER: 128}
 SSM_STEPS, SSM_KV_FLOOR = 16, 1e-4
+# train phase: smollm-135m at full width. (a) LM_CUT_LAYERS deep in
+# float32, one step at TRAIN_CHECK_SHAPE card vs CPU, both against a
+# float64 step (``held_train_step``: the card within LM_F32_SLACK x the
+# CPU's distance or TRAIN_TOL of a leaf's scale; new parameters within
+# TRAIN_UPDATE_TOL of AdamW's update from the card's moments); (b) the
+# launcher at full depth (TRAIN_ARGV: a fault injected at
+# TRAIN_FAULT_AT, checkpoints every TRAIN_CKPT_EVERY steps); (c) remat
+# "block" vs "none" at full depth at TRAIN_REMAT_SHAPE; (d) DP
+# compression over
+# TRAIN_DP_PODS pods of the card, TRAIN_DP_STEPS steps at TRAIN_DP_SHAPE
+# on the cut, the error-feedback sums within TRAIN_EF_TOL; (e) GPipe over
+# TRAIN_PP_STAGES stages of the card, TRAIN_PP_MICRO microbatches at
+# TRAIN_PP_SHAPE, full depth in float32, within TRAIN_PP_TOL of the
+# unpipelined loss; (f) TRAIN_FAMILIES at full width, one pattern period
+# deep, one step at TRAIN_FAMILY_SHAPE held as (a) and one bf16 step
+TRAIN_CHECK_SHAPE, TRAIN_TOL, TRAIN_LR = (2, 128), 1e-4, 3e-4
+TRAIN_STEPS, TRAIN_FAULT_AT, TRAIN_CKPT_EVERY = 40, 25, 10
+TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+              "8", "--seq", "256", "--ckpt-every", str(TRAIN_CKPT_EVERY),
+              "--inject-fault-at", str(TRAIN_FAULT_AT)]
+TRAIN_REMAT_SHAPE = (8, 256)
+TRAIN_DP_PODS, TRAIN_DP_STEPS, TRAIN_DP_SHAPE, TRAIN_EF_TOL = 4, 3, (8, 64), \
+    1e-5
+TRAIN_PP_STAGES, TRAIN_PP_MICRO, TRAIN_PP_SHAPE, TRAIN_PP_TOL = 3, 6, \
+    (6, 128), 1e-5
+TRAIN_FAMILIES = ("granite-moe-1b-a400m", "xlstm-125m", "zamba2-2.7b",
+                  "whisper-tiny")
+TRAIN_FAMILY_SHAPE, TRAIN_UPDATE_TOL = (1, 64), 1e-6
 FLASH_A = (4, 2048)             # smollm layer 0: batch, sequence
 FLASH_B = (1, 4096)             # gemma3-12b local layer: batch, sequence
 FLASH_C_TAIL = (2, 512, 2048)   # batch, queries at the tail, keys
@@ -662,6 +706,7 @@ def main() -> int:
     decode_phase(dev, params)
     moe_phase(dev)
     ssm_phase(dev, smi)
+    train_phase(dev, smi)
     flash = flash_phase(dev, params)
     del params
 
@@ -1587,14 +1632,17 @@ def lm_phase(dev):
     return params
 
 
-def profiled_call(fn) -> dict:
+def profiled_call(fn, grad: bool = False) -> dict:
     """One call of ``fn`` under ``torch.profiler``, opened by the MARKER:
     its wall time up to a synchronisation, device time, device kernels,
-    the device's busy share and the top CPU and device rows."""
+    the device's busy share and the top CPU and device rows. Inference
+    mode unless ``grad`` (a training step)."""
+    import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with torch.inference_mode(), profile(activities=[
+    mode = contextlib.nullcontext() if grad else torch.inference_mode()
+    with mode, profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)                       # the MARKER
         t0 = time.perf_counter()
@@ -2316,6 +2364,475 @@ def decode_vs_forward(cfg, params, cpu_params, toks, P, floor) -> dict:
                                - full[:, real].double()).abs().max())
     if not out["card"] <= LM_F32_SLACK * out["cpu"] + floor:
         raise AssertionError(f"{cfg.name}: decode vs forward {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+def train_phase(dev, smi) -> None:
+    """The training path on the card, one line a part: (a) one float32
+    step card vs CPU, (b) ``launch.train.main`` at full depth with an
+    injected fault, (c) remat, (d) DP compression, (e) pipeline
+    parallelism, (f) the other families. Every part prints its numbers
+    first; the phase then raises if any check failed."""
+    import torch
+    failures = []
+    for part in (train_card_vs_cpu, train_launcher, train_remat, train_dp,
+                 train_pp, train_families):
+        t0 = time.perf_counter()
+        line = part(dev, failures)
+        emit({"phase": "train", "card": smi, **line,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"train: {failures}")
+
+
+def _on(tree, d):
+    import torch
+    from repro_torch.sharding.api import tree_map
+    return tree_map(lambda t: t.to(d), tree, is_leaf=torch.is_tensor)
+
+
+def _bigram(cfg, B, S, seed, device):
+    """A ``BigramStream`` batch as the launcher makes it: tokens and
+    labels (B, S) on ``device``."""
+    import torch
+    from repro_torch.data.pipeline import BigramStream
+    toks = BigramStream(cfg.vocab_size, seed=0).sample(
+        np.random.default_rng(seed), B, S)
+    return {"tokens": torch.as_tensor(toks[:, :-1], device=device),
+            "labels": torch.as_tensor(toks[:, 1:], device=device)}
+
+
+def _dist(x, ref, scale=None) -> float:
+    """max |x - ref| / (scale or max |ref|), on the CPU in float64."""
+    ref = ref.double()
+    d = float((x.cpu().double() - ref).abs().max())
+    return d / (scale or max(float(ref.abs().max()), 1e-30))
+
+
+def adamw_from_moments(opt, p, m, v, step: int = 1):
+    """AdamW's new parameter from its new moments, in the optimizer's own
+    float32 arithmetic (``repro_torch.train.optimizer.AdamW.update``)."""
+    import torch
+    sf = torch.tensor(float(step))
+    bc1 = 1 - torch.pow(torch.tensor(opt.b1), sf)
+    bc2 = 1 - torch.pow(torch.tensor(opt.b2), sf)
+    lr = opt.lr(torch.tensor(step, dtype=torch.int32))
+    return p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
+                     + opt.weight_decay * p)
+
+
+def held_train_step(cfg, params, cpu_params, batch, failures, name):
+    """One ``make_train_step`` (the launcher's AdamW schedule) from the
+    same weights and batch in float32 on the card and on the CPU, and in
+    float64 on the CPU. Random full-width weights amplify rounding, so the
+    two float32 steps are compared through the float64 one, as the lm
+    phase compares logits: the card's loss, grad_norm and every m and v
+    leaf no farther from float64 than LM_F32_SLACK x the CPU's (or
+    TRAIN_TOL of the leaf's scale). AdamW moves every entry by about lr,
+    so an entry whose gradient is at the rounding level may move either
+    way: the card's new parameters are held instead to AdamW's update
+    recomputed on the CPU from the card's own m and v, within
+    TRAIN_UPDATE_TOL of the leaf's scale."""
+    import torch
+    from repro_torch.configs import scaled
+    from repro_torch.sharding.api import tree_leaves, tree_map
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+    dev = next(iter(batch.values())).device
+    cpu_batch = _on(batch, "cpu")
+    step = make_train_step(cfg, opt)
+    p_g, s_g, m_g = step(params, opt.init(params), batch)
+    _, s_c, m_c = step(cpu_params, opt.init(cpu_params), cpu_batch)
+    p64 = tree_map(lambda t: t.double(), cpu_params, is_leaf=torch.is_tensor)
+    _, s_x, m_x = make_train_step(scaled(cfg, dtype="float64"), opt)(
+        p64, opt.init(p64), cpu_batch)
+    del p64
+    worst = {}
+
+    def held(key, card, cpu, exact, scale=None):
+        d_card, d_cpu = _dist(card, exact, scale), _dist(cpu, exact, scale)
+        ratio = d_card / max(LM_F32_SLACK * d_cpu, TRAIN_TOL)
+        if key not in worst or ratio > worst[key][0]:
+            worst[key] = (ratio, d_card, d_cpu)
+
+    for k in ("loss", "grad_norm"):
+        held(k, m_g[k], m_c[k], m_x[k])
+    for k in ("m", "v"):
+        for g, c, x in zip(tree_leaves(s_g[k]), tree_leaves(s_c[k]),
+                           tree_leaves(s_x[k]), strict=True):
+            held(k, g, c, x)
+    update = max(_dist(pg, adamw_from_moments(opt, p, mg.cpu(), vg.cpu()))
+                 for pg, p, mg, vg in zip(
+                     tree_leaves(p_g), tree_leaves(cpu_params),
+                     tree_leaves(s_g["m"]), tree_leaves(s_g["v"]),
+                     strict=True))
+    out = {"loss": float(m_c["loss"]), "grad_norm": float(m_c["grad_norm"]),
+           "lr": float(m_c["lr"]), "slack": LM_F32_SLACK, "floor": TRAIN_TOL,
+           "vs_f64": {k: {"worst_ratio": r, "card": dc, "cpu": dp}
+                      for k, (r, dc, dp) in worst.items()},
+           "params_vs_update_from_card_moments": update,
+           "update_tol": TRAIN_UPDATE_TOL}
+    bad = [k for k, (r, _, _) in worst.items() if not r <= 1.0]
+    if not update <= TRAIN_UPDATE_TOL:
+        bad.append("params")
+    if not (int(s_g["step"]) == 1 and str(p_g["embed"].device) == str(dev)
+            and float(m_g["lr"]) == float(m_c["lr"])):
+        bad.append("step/lr/device")
+    if bad:
+        failures.append(f"{name}: card vs CPU {bad} {out}")
+    return out
+
+
+def train_card_vs_cpu(dev, failures) -> dict:
+    """(a) smollm-135m at full width, LM_CUT_LAYERS deep, float32: one
+    step at TRAIN_CHECK_SHAPE card vs CPU from the same weights and
+    ``BigramStream`` batch."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.models import lm_specs
+    from repro_torch.sharding.api import materialize
+    cfg = scaled(get_config(LM_ARCH), num_layers=LM_CUT_LAYERS,
+                 dtype="float32")
+    cpu = materialize(lm_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    batch = _bigram(cfg, *TRAIN_CHECK_SHAPE, 1000, dev)
+    held = held_train_step(cfg, _on(cpu, dev), cpu, batch, failures, "a")
+    return {"part": "a_card_vs_cpu", "arch": LM_ARCH,
+            "layers": LM_CUT_LAYERS, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "shape": list(TRAIN_CHECK_SHAPE),
+            "reduced": {"num_layers": [get_config(LM_ARCH).num_layers,
+                                       LM_CUT_LAYERS]}, "f32_step": held}
+
+
+def train_launcher(dev, failures) -> dict:
+    """(b) ``launch.train.main(TRAIN_ARGV)`` on the card at full depth
+    (bf16 compute, float32 weights): one restart, the last checkpoint at
+    the last step, the loss falling; ms a step (median, leaving out the
+    first 2 steps and each step after a checkpoint), tokens/s, peak bytes,
+    checkpoint save and restore seconds, one profiled step."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint as ckpt
+    B, S = int(TRAIN_ARGV[TRAIN_ARGV.index("--batch") + 1]), \
+        int(TRAIN_ARGV[TRAIN_ARGV.index("--seq") + 1])
+    seen = []
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        rep = launch.main(TRAIN_ARGV + ["--ckpt-dir", d],
+                          metrics_cb=lambda i, m, dt: seen.append(
+                              (i, m["loss"], dt)))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        last = ckpt.latest_step(d)
+        cfg, params, opt_state, step, _ = launch.build(
+            LM_ARCH, False, B, S, TRAIN_STEPS, lr=TRAIN_LR, device=dev)
+        t0 = time.perf_counter()
+        state, _, _ = ckpt.restore(d, {"params": params,
+                                       "opt_state": opt_state}, device=dev)
+        restore_s = time.perf_counter() - t0
+        del params, opt_state
+        t0 = time.perf_counter()
+        ckpt.save(d, TRAIN_STEPS + 1, state)
+        save_s = time.perf_counter() - t0
+    loss = {i: l for i, l, _ in seen}             # a replayed step's last
+    kept = [dt for n, (i, _, dt) in enumerate(seen)
+            if n >= 2 and i % TRAIN_CKPT_EVERY != 0]
+    ms = float(np.median(kept)) * 1e3
+    first = float(np.mean([loss[i] for i in range(5)]))
+    final = float(np.mean([loss[i] for i in range(TRAIN_STEPS - 5,
+                                                  TRAIN_STEPS)]))
+    batch = _bigram(cfg, B, S, 1000 + TRAIN_STEPS, dev)
+    profiled = profiled_call(lambda: step(state["params"],
+                                          state["opt_state"], batch),
+                             grad=True)
+    out = {"part": "b_launcher", "argv": TRAIN_ARGV, "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "restarts": rep.restarts,
+           "steps_run": rep.steps_run, "stragglers": rep.stragglers,
+           "latest_checkpoint": last, "mean_loss_first5": first,
+           "mean_loss_last5": final, "ln_vocab": float(np.log(
+               cfg.vocab_size)), "ms_per_step_median": ms,
+           "ms_per_step_all": [dt * 1e3 for _, _, dt in seen],
+           "tokens_per_s": B * S / (ms / 1e3), "peak_bytes": int(peak),
+           "peak_above_start_bytes": int(peak - base),
+           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+           "run_wall_s": wall, "profiled_step": profiled}
+    if not (rep.restarts == 1 and last == TRAIN_STEPS and final < first
+            and len(loss) == TRAIN_STEPS):
+        failures.append(f"b: restarts {rep.restarts}, checkpoint {last}, "
+                        f"loss {first} -> {final}, steps {sorted(loss)}")
+    return out
+
+
+def _grads(cfg, params, batch):
+    """(loss, gradient leaves) of ``lm_loss``, and the peak bytes the call
+    allocated above what was allocated before it."""
+    import torch
+    from repro_torch.models import lm_loss
+    from repro_torch.sharding.api import tree_leaves
+    from repro_torch.train.step import value_and_grad
+    dev = params["embed"].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (loss, _), g = value_and_grad(lambda p: lm_loss(cfg, p, batch), params)
+    torch.cuda.synchronize()
+    return (loss, tree_leaves(g),
+            int(torch.cuda.max_memory_allocated(dev) - base))
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+    return (torch.equal(a[0], b[0])
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1],
+                                                      strict=True)))
+
+
+def train_remat(dev, failures) -> dict:
+    """(c) smollm-135m at full depth: ``lm_loss`` and its gradients with
+    remat "block" and "none" from the same weights and batch, bit for
+    bit, and the peak bytes of each. "none" runs twice: if the card's
+    kernels are not bit-stable from run to run (atomic sums), the two
+    settings are held under ``torch.use_deterministic_algorithms``."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    cfg = get_config(LM_ARCH)
+    params, _, _ = _draw(cfg, dev, 22)
+    batch = _bigram(cfg, *TRAIN_REMAT_SHAPE, 2000, dev)
+    block = _grads(scaled(cfg, remat="block"), params, batch)
+    none = _grads(scaled(cfg, remat="none"), params, batch)
+    again = _grads(scaled(cfg, remat="none"), params, batch)
+    out = {"part": "c_remat", "shape": list(TRAIN_REMAT_SHAPE),
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "peak_above_start_bytes": {"block": block[2], "none": none[2]},
+           "none_run_to_run_bit_equal": _bit_equal(none, again),
+           "block_vs_none_bit_equal": _bit_equal(block, none)}
+    if not out["none_run_to_run_bit_equal"]:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            block = _grads(scaled(cfg, remat="block"), params, batch)
+            none = _grads(scaled(cfg, remat="none"), params, batch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["deterministic_block_vs_none_bit_equal"] = _bit_equal(block,
+                                                                  none)
+        ok = out["deterministic_block_vs_none_bit_equal"]
+    else:
+        ok = out["block_vs_none_bit_equal"]
+    if not ok:
+        failures.append(f"c: remat changed the loss or gradients {out}")
+    return out
+
+
+def train_dp(dev, failures) -> dict:
+    """(d) ``make_dp_compressed_train_step`` over ``fleet_mesh(TRAIN_DP_PODS,
+    "pod")`` of the card, int8 and top-k, TRAIN_DP_STEPS steps on the
+    LM_CUT_LAYERS cut in float32, held to the same steps on the CPU (loss
+    and grad_norm at TRAIN_TOL); the error-feedback invariant: the sum of
+    the reduced gradients times the pod count plus the pods' residuals
+    equals the sum of the pods' true gradients, within TRAIN_EF_TOL of
+    each leaf's scale. ms a step on the card."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.core.fleet import fleet_mesh
+    from repro_torch.models import lm_loss, lm_specs
+    from repro_torch.sharding.api import materialize, tree_leaves
+    from repro_torch.train.compression import make_dp_compressed_train_step
+    from repro_torch.train.optimizer import AdamW, constant_lr
+    from repro_torch.train.step import value_and_grad
+    cfg = scaled(get_config(LM_ARCH), num_layers=LM_CUT_LAYERS,
+                 dtype="float32")
+    cpu = materialize(lm_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+
+    def loss_fn(p, b):
+        return lm_loss(cfg, p, b)
+
+    class Recording(AdamW):
+        """AdamW that keeps the (reduced) gradient it is given."""
+        def update(self, grads, state, params):
+            self.seen = grads
+            return super().update(grads, state, params)
+
+    n, rows = TRAIN_DP_PODS, TRAIN_DP_SHAPE[0] // TRAIN_DP_PODS
+    out = {"part": "d_dp_compression", "pods": n, "layers": LM_CUT_LAYERS,
+           "shape": list(TRAIN_DP_SHAPE), "steps": TRAIN_DP_STEPS}
+    for method in ("int8", "topk"):
+        runs = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            opt = Recording(lr=constant_lr(1e-3))
+            step, init_ef = make_dp_compressed_train_step(
+                loss_fn, opt, fleet_mesh(n, "pod", device=d), "pod", method)
+            params = _on(cpu, d)
+            state, ef = opt.init(params), init_ef(params)
+            red_sum = true_sum = None
+            losses, norms, times = [], [], []
+            for i in range(TRAIN_DP_STEPS):
+                batch = _bigram(cfg, *TRAIN_DP_SHAPE, 3000 + i, d)
+                true = [tree_leaves(value_and_grad(
+                    loss_fn, params, {k: v[j * rows:(j + 1) * rows]
+                                      for k, v in batch.items()})[1])
+                        for j in range(n)]
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, ef, m = step(params, state, ef, batch)
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                red = [g * n for g in tree_leaves(opt.seen)]
+                tsum = [sum(g[k] for g in true) for k in range(len(red))]
+                red_sum = red if red_sum is None else [
+                    a + b for a, b in zip(red_sum, red)]
+                true_sum = tsum if true_sum is None else [
+                    a + b for a, b in zip(true_sum, tsum)]
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            ef_err = max(float((r + e.sum(0) - t).abs().max())
+                         / max(float(t.abs().max()), 1e-30)
+                         for r, e, t in zip(red_sum, tree_leaves(ef),
+                                            true_sum))
+            runs[where] = {"losses": losses, "grad_norms": norms,
+                           "ms_per_step": times, "ef_invariant_rel": ef_err}
+        card, cpu_run = runs["card"], runs["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(card["losses"], cpu_run["losses"]))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(card["grad_norms"], cpu_run["grad_norms"]))
+        out[method] = {"card": card, "cpu_losses": cpu_run["losses"],
+                       "cpu_ef_invariant_rel": cpu_run["ef_invariant_rel"],
+                       "loss_rel": loss_rel, "grad_norm_rel": norm_rel}
+        if not (loss_rel <= TRAIN_TOL and norm_rel <= TRAIN_TOL
+                and card["ef_invariant_rel"] <= TRAIN_EF_TOL
+                and cpu_run["ef_invariant_rel"] <= TRAIN_EF_TOL):
+            failures.append(f"d {method}: {out[method]}")
+    return out
+
+
+def train_pp(dev, failures) -> dict:
+    """(e) ``make_pp_loss`` over ``fleet_mesh(TRAIN_PP_STAGES, "stage")``
+    of the card, smollm-135m at full depth and width in float32,
+    TRAIN_PP_MICRO microbatches: the loss and every gradient leaf within
+    TRAIN_PP_TOL (relative to the leaf's scale) of the unpipelined
+    ``lm_loss`` over the same microbatches (the same operations on the
+    same rows, so the float32 rounding that 30 random layers amplify is
+    the same on both); every stage's blocks get a non-zero gradient. The
+    distance to one ``lm_loss`` over the whole batch is printed beside
+    it (other row counts, so other summation orders in the products)."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.core.fleet import fleet_mesh
+    from repro_torch.models import lm_loss
+    from repro_torch.sharding.api import tree_flatten_with_path, tree_leaves
+    from repro_torch.train.pipeline_parallel import make_pp_loss
+    from repro_torch.train.step import value_and_grad
+    cfg = scaled(get_config(LM_ARCH), dtype="float32")
+    params, _, _ = _draw(cfg, dev, 23)
+    batch = _bigram(cfg, *TRAIN_PP_SHAPE, 4000, dev)
+    M, mb = TRAIN_PP_MICRO, TRAIN_PP_SHAPE[0] // TRAIN_PP_MICRO
+    pp = make_pp_loss(cfg, fleet_mesh(TRAIN_PP_STAGES, "stage", device=dev),
+                      M)
+
+    def per_micro(p):
+        return torch.stack([lm_loss(cfg, p, {k: v[i * mb:(i + 1) * mb]
+                                             for k, v in batch.items()})[0]
+                            for i in range(M)]).mean(), {}
+
+    def timed(fn):
+        """(loss, gradient leaves, ms of the second of two calls)."""
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (loss, _), g = value_and_grad(fn, params)
+            torch.cuda.synchronize()
+        return loss, tree_leaves(g), (time.perf_counter() - t0) * 1e3
+
+    got = timed(lambda p: (pp(p, batch), {}))
+    want = timed(per_micro)
+    whole = timed(lambda p: lm_loss(cfg, p, batch))
+
+    def dist(a, b):
+        return {"loss_rel": abs(float(a[0]) - float(b[0])) / abs(float(b[0])),
+                "grad_rel": max(float((x - y).abs().max())
+                                / max(float(y.abs().max()), 1e-30)
+                                for x, y in zip(a[1], b[1], strict=True))}
+
+    out = {"part": "e_pipeline", "stages": TRAIN_PP_STAGES,
+           "microbatches": M, "shape": list(TRAIN_PP_SHAPE),
+           "layers": cfg.num_layers, "loss": float(got[0]),
+           "vs_unpipelined_microbatches": dist(got, want),
+           "vs_unpipelined_whole_batch": dist(got, whole),
+           "ms": {"pipelined": got[2], "unpipelined_microbatches": want[2],
+                  "unpipelined_whole_batch": whole[2]}}
+    blocks = [g for g, (path, _) in zip(got[1], tree_flatten_with_path(
+        params, is_leaf=torch.is_tensor)) if path[0] == "blocks"]
+    out["every_stage_nonzero_grad"] = len(blocks) > 0 and all(
+        bool((g.reshape(TRAIN_PP_STAGES, -1).abs().sum(1) > 0).all())
+        for g in blocks)
+    d = out["vs_unpipelined_microbatches"]
+    if not (d["loss_rel"] <= TRAIN_PP_TOL and d["grad_rel"] <= TRAIN_PP_TOL
+            and out["every_stage_nonzero_grad"]):
+        failures.append(f"e: {out}")
+    return out
+
+
+def train_families(dev, failures) -> dict:
+    """(f) TRAIN_FAMILIES at full width, one pattern period deep (whisper:
+    one decoder and one encoder layer): weights drawn on the card and
+    copied to the CPU, one float32 step at TRAIN_FAMILY_SHAPE card vs CPU
+    (``held_train_step``; the MoE's ``index_add_`` sums with atomics on
+    the card, so granite is held by tolerance, never bit for bit), then
+    one step in the config's own dtype on the card: finite loss,
+    grad_norm > 0, ms a step."""
+    import torch
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.models import lm_specs
+    from repro_torch.sharding.api import materialize, num_params
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+    out = {"part": "f_families", "shape": list(TRAIN_FAMILY_SHAPE)}
+    B, S = TRAIN_FAMILY_SHAPE
+    for seed, arch in enumerate(TRAIN_FAMILIES, 30):
+        full = get_config(arch)
+        cut = {"num_layers": len(full.block_pattern)}
+        if full.is_encoder_decoder:
+            cut["encoder_layers"] = 1
+        cfg = scaled(full, **cut)
+        f32 = scaled(cfg, dtype="float32")
+        params = materialize(lm_specs(cfg),
+                             torch.Generator(device=dev).manual_seed(seed),
+                             dev)
+        rng = np.random.default_rng(seed)
+        batch = _bigram(cfg, B, S, 5000 + seed, dev)
+        if cfg.is_encoder_decoder:
+            batch["audio_embed"] = torch.as_tensor(rng.standard_normal(
+                (B, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32,
+                device=dev)
+        held = held_train_step(f32, params, _to_cpu(params), batch,
+                               failures, f"f {arch}")
+        opt = AdamW(lr=warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+        step = make_train_step(cfg, opt)
+        state = opt.init(params)
+        _, _, m = step(params, state, batch)
+        ms = cuda_ms(lambda: step(params, state, batch), runs=3, warmup=1)
+        own = {"dtype": cfg.dtype, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "ms": ms}
+        if not (np.isfinite(own["loss"]) and own["grad_norm"] > 0):
+            failures.append(f"f {arch} {cfg.dtype} step: {own}")
+        out[arch] = {"layers": cfg.num_layers, "pattern": list(
+            cfg.block_pattern), "d_model": cfg.d_model,
+            "params": num_params(lm_specs(cfg)),
+            "reduced": {k: [getattr(full, k), v] for k, v in cut.items()},
+            "f32_step": held, "own_dtype_step": own}
+        del params, state
+        torch.cuda.empty_cache()
     return out
 
 

@@ -9,9 +9,16 @@ lanes carried across batches) — the CUDA ingest kernel on the card, its
 plain version on the CPU. ``interleave_streams`` merges per-camera
 record streams for the Load Shedder. Every entry point takes ``device``
 (default: the CUDA card).
+
+LM path: a seeded synthetic token stream (``BigramStream``, a Zipfian
+bigram chain with learnable structure, the reference's samples for the
+same seeds) and ``TokenPipeline``, its double-buffered prefetching
+iterator with a straggler guard, placing each batch on ``device``.
 """
 from __future__ import annotations
 
+import queue as _q
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -192,5 +199,96 @@ def interleave_streams(per_cam_records: Sequence[List[FrameRecord]]
     return sorted(allr, key=lambda r: (r.t_gen, r.cam_id, r.frame_idx))
 
 
-__all__ = ["FrameRecord", "features_from_hsv", "ingest_stream",
-           "scenario_records", "camera_array_records", "interleave_streams"]
+# ---------------------------------------------------------------------------
+# LM token pipeline
+# ---------------------------------------------------------------------------
+
+class BigramStream:
+    """Zipfian bigram-chain language: P(next | cur) concentrated on a few
+    successors, so cross-entropy is learnable well below ln(V). NumPy
+    only: the same ``succ``, ``p`` and samples as the reference's for the
+    same seeds."""
+
+    def __init__(self, vocab: int, seed: int = 0, branch: int = 4):
+        rng = np.random.default_rng(seed)
+        self.vocab = vocab
+        self.branch = branch
+        self.succ = rng.integers(0, vocab, (vocab, branch))
+        p = 1.0 / (np.arange(branch) + 1.0)
+        self.p = p / p.sum()
+
+    def sample(self, rng: np.random.Generator, batch: int, seq: int):
+        """(batch, seq + 1) int32 tokens: inputs ``[:, :-1]``, labels
+        ``[:, 1:]``."""
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, batch)
+        for t in range(seq):
+            pick = rng.choice(self.branch, size=batch, p=self.p)
+            explore = rng.random(batch) < 0.1
+            nxt = self.succ[toks[:, t], pick]
+            toks[:, t + 1] = np.where(
+                explore, rng.integers(0, self.vocab, batch), nxt)
+        return toks
+
+
+class TokenPipeline:
+    """Double-buffered prefetching batch iterator with straggler guard:
+    batches ``{"tokens", "labels"}`` (batch, seq) int32 tensors on
+    ``device`` (default: the CUDA card).
+
+    ``skip_after``: if a producer step exceeds the timeout, the batch is
+    dropped and a fresh one produced (host-side straggler mitigation —
+    the analogue of the shedder's bounded queue for the training path).
+    ``shardings`` must be ``None``: placement over a mesh is ROADMAP
+    Queue 1 item 10.7."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, seed: int = 0,
+                 prefetch: int = 2, shardings=None, skip_after: float = 30.0,
+                 *, device: DeviceLike = None):
+        if shardings is not None:
+            raise NotImplementedError(
+                "TokenPipeline(shardings=...): mesh placement is ROADMAP "
+                "Queue 1 item 10.7; pass device= instead")
+        self.device = resolve_device(device)
+        self.stream = BigramStream(vocab, seed)
+        self.rng = np.random.default_rng(seed + 1)
+        self.batch, self.seq = batch, seq
+        self.skip_after = skip_after
+        self._queue: _q.Queue = _q.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+
+    def _make(self):
+        toks = self.stream.sample(self.rng, self.batch, self.seq)
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in (("tokens", toks[:, :-1]),
+                             ("labels", toks[:, 1:]))}
+
+    def _producer(self):
+        while not self._stop.is_set():
+            b = self._make()
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(b, timeout=0.5)
+                    break
+                except _q.Full:
+                    continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return self._queue.get(timeout=self.skip_after)
+        except _q.Empty:
+            # straggler: synthesize inline rather than stalling the step
+            return self._make()
+
+    def close(self):
+        self._stop.set()
+
+
+__all__ = ["BigramStream", "FrameRecord", "TokenPipeline",
+           "camera_array_records", "features_from_hsv", "ingest_stream",
+           "interleave_streams", "scenario_records"]

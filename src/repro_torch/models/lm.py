@@ -13,12 +13,18 @@ per pattern entry, each leaf (reps, ...)), "cross_kv": None or {"k", "v"}
 repetition, while its cache is per repetition. Encoder-decoder (whisper)
 adds ``params["encoder"]`` (stacked blocks, final norm) and
 ``params["cross"]`` (one cross-attention per decoder layer, stacked).
-The forward is inference only: a Python loop over the repetitions
-indexes the stacked weights and caches (no scan, no remat).
+A Python loop over the repetitions indexes the stacked weights and caches
+(no scan). ``lm_loss`` is the training objective: under autograd, with
+``cfg.remat == "block"``, each repetition's body (and each encoder
+layer) runs under ``torch.utils.checkpoint`` as the reference's
+``jax.checkpoint`` body does: its activations are recomputed in the
+backward instead of kept. Remat moves memory, not values, and it is the
+identity while grad is disabled, so serving is unchanged.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SHARED_ATTN, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -111,6 +117,17 @@ def _rep(tree, r):
     return tree_map(lambda a: a[r], tree, is_leaf=torch.is_tensor)
 
 
+def _remat(cfg, body):
+    """``body`` under activation checkpointing where the reference wraps it
+    in ``jax.checkpoint``: ``cfg.remat == "block"`` while grad is
+    enabled; ``body`` itself otherwise."""
+    if cfg.remat != "block" or not torch.is_grad_enabled():
+        return body
+    # the model draws no random numbers: no RNG state to stash a call
+    return lambda *args: checkpoint(body, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
 def encode(cfg, params, audio_embed):
     """audio_embed: (B, T, d) precomputed frontend stub output."""
     enc = params["encoder"]
@@ -118,12 +135,17 @@ def encode(cfg, params, audio_embed):
     positions = torch.arange(T, dtype=torch.int32, device=audio_embed.device)
     x = audio_embed.to(cdtype(cfg))
     x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)[None]
-    for r in range(cfg.encoder_layers):
+
+    def body(x, r):
         prm = _rep(enc["blocks"], r)
         h = rmsnorm(x, prm["norm1"], cfg.norm_eps)
         out, _ = attend_full(prm["attn"], cfg, h, positions, causal=False)
         x = x + out
-        x = x + mlp(prm["mlp"], rmsnorm(x, prm["norm2"], cfg.norm_eps))
+        return x + mlp(prm["mlp"], rmsnorm(x, prm["norm2"], cfg.norm_eps))
+
+    run = _remat(cfg, body)
+    for r in range(cfg.encoder_layers):
+        x = run(x, r)
     return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -150,7 +172,7 @@ def _apply_cross(cfg, prm, x, cross_kv, positions):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _stack(trees):
@@ -191,18 +213,31 @@ def lm_forward(cfg, params, batch, *, want_cache=False, max_seq=None,
                              "one block kind")
         cross_kv = _cross_kv(cfg, params["cross"],
                              encode(cfg, params, batch["audio_embed"]))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = [[] for _ in cfg.block_pattern]
-    for r in range(cfg.pattern_repeats):
+
+    def body(x, r):
+        """Repetition ``r``: (x, its caches, its aux)."""
+        rep_caches, aux = [], torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
         for p_idx, kind in enumerate(cfg.block_pattern):
             x, cache, a = B.block_apply_full(
                 cfg, kind, _block_params(params, kind, p_idx, r), x,
                 positions, want_cache=want_cache, max_seq=max_seq)
-            caches[p_idx].append(cache)
+            rep_caches.append(cache)
             aux = aux + a
         if cross_kv is not None:
             x = _apply_cross(cfg, _rep(params["cross"], r), x,
                              _rep(cross_kv, r), positions)
+        return x, rep_caches, aux
+
+    run = body if want_cache else _remat(cfg, body)
+    caches = [[] for _ in cfg.block_pattern]
+    auxs = []
+    for r in range(cfg.pattern_repeats):
+        x, rep_caches, a = run(x, r)
+        for p_idx, cache in enumerate(rep_caches):
+            caches[p_idx].append(cache)
+        auxs.append(a)
+    aux = torch.stack(auxs).sum()
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_logit_only:
         x = x[:, -1:, :]
@@ -212,6 +247,38 @@ def lm_forward(cfg, params, batch, *, want_cache=False, max_seq=None,
         out_caches = {"blocks": tuple(_stack(c) for c in caches),
                       "cross_kv": cross_kv}
     return logits, out_caches, aux
+
+
+def token_ce(logits, labels):
+    """Per-token next-token cross-entropy, float32: the float32
+    ``logsumexp`` of the logits less the label's logit. The reference sums
+    ``logits * one_hot(labels)``, one non-zero term, so a ``gather`` is
+    the same value."""
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - label_logit.float()
+
+
+def lm_loss(cfg, params, batch):
+    """Next-token CE. batch: tokens (B, S), labels (B, S), optional
+    ``loss_mask`` (B, S) [, ``audio_embed``]. Returns ``(loss + 0.01 *
+    aux, {"loss", "aux_loss", "tokens"})``: the mean CE (under a mask,
+    its masked sum over ``max(sum(mask), 1)``), the MoE aux loss, and
+    the label count as float32."""
+    logits, _, aux = lm_forward(cfg, params, batch)
+    labels = batch["labels"]
+    ce = token_ce(logits, labels)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = ce.mean()
+    else:
+        mask = mask.to(ce.dtype)
+        loss = (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "tokens": torch.tensor(float(labels.numel()),
+                                          dtype=torch.float32,
+                                          device=ce.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -275,5 +342,5 @@ def lm_decode_step(cfg, params, caches, tokens, pos):
 
 
 __all__ = ["embed_tokens", "encode", "init_caches", "lm_decode_step",
-           "lm_forward", "lm_prefill", "lm_specs", "logits_fn",
-           "padded_vocab"]
+           "lm_forward", "lm_loss", "lm_prefill", "lm_specs", "logits_fn",
+           "padded_vocab", "token_ce"]

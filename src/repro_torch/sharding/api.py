@@ -81,6 +81,13 @@ def tree_map(fn, tree, is_leaf: Callable = is_spec):
     return fn(tree)
 
 
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s nesting holding ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def spec_leaves(tree):
     return tree_leaves(tree, is_spec)
 
@@ -136,4 +143,4 @@ def constrain(x, *axes, rules=None):
 
 __all__ = ["DTYPES", "ParamSpec", "constrain", "is_spec", "materialize", "num_params",
            "spec_leaves", "tree_flatten_with_path", "tree_leaves", "tree_map",
-           "tree_map_specs"]
+           "tree_map_specs", "tree_unflatten"]

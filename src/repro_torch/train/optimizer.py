@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.sharding.api import tree_leaves, tree_map
+from repro_torch.sharding.api import tree_leaves, tree_map, tree_unflatten
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -85,15 +85,10 @@ class AdamW:
 
         new = [upd(p, mo, vo)
                for p, mo, vo in zip(tree_leaves(params), m, v)]
-        return (_unflatten(params, new),
-                {"m": _unflatten(params, m), "v": _unflatten(params, v),
-                 "step": step},
+        return (tree_unflatten(params, new),
+                {"m": tree_unflatten(params, m),
+                 "v": tree_unflatten(params, v), "step": step},
                 {"grad_norm": gnorm, "lr": lr})
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
 
 
 def global_norm(tree) -> torch.Tensor:

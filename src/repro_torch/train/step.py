@@ -1,17 +1,46 @@
-"""Step functions: the cascade scorer's training step on
-``torch.autograd`` (``make_scorer_train_step``) and the language model's
-serving steps (``make_prefill_step``, ``make_decode_step``) for every
-config, an encoder-decoder one with ``batch["audio_embed"]`` at prefill.
-The language model's training step waits for ROADMAP.md Queue 1 item
-10.6.
+"""Step functions on ``torch.autograd``: the language model's training
+step (``make_train_step``) and the cascade scorer's
+(``make_scorer_train_step``), and the language model's serving steps
+(``make_prefill_step``, ``make_decode_step``) for every config, an
+encoder-decoder one with ``batch["audio_embed"]``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import lm_decode_step, lm_prefill
-from repro_torch.sharding.api import tree_leaves, tree_map
+from repro_torch.models import lm_decode_step, lm_loss, lm_prefill
+from repro_torch.sharding.api import tree_leaves, tree_map, tree_unflatten
 from repro_torch.train.optimizer import AdamW
+
+
+def value_and_grad(loss_fn, params, *args):
+    """``jax.value_and_grad(loss_fn, has_aux=True)(params, *args)`` on
+    autograd: ``((loss, metrics), grads)``, ``grads`` a tree like
+    ``params`` (zeros for a leaf the loss does not reach), the loss and
+    metrics detached."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live, *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(leaves, grads)])
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), grads
+
+
+def make_train_step(cfg, opt: AdamW):
+    """``step(params, opt_state, batch) -> (params', opt_state',
+    metrics)``: one AdamW step on ``lm_loss``'s gradient; ``metrics``
+    holds ``lm_loss``'s, ``grad_norm``, ``lr`` and ``loss_total`` (the
+    loss with the aux term), all detached."""
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(
+            lambda p: lm_loss(cfg, p, batch), params)
+        params, opt_state, opt_metrics = opt.update(grads, opt_state, params)
+        return params, opt_state, {**metrics, **opt_metrics,
+                                   "loss_total": loss}
+    return train_step
 
 
 def make_scorer_train_step(loss_fn, opt: AdamW):
@@ -22,16 +51,9 @@ def make_scorer_train_step(loss_fn, opt: AdamW):
     the loss function's metrics, the optimizer's and ``"loss"``, all
     detached tensors."""
     def scorer_step(params, opt_state, batch):
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            loss, metrics = loss_fn(live, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(live))
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), params)
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         params, opt_state, opt_metrics = opt.update(grads, opt_state, params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, {**metrics, **opt_metrics,
-                                   "loss": loss.detach()}
+        return params, opt_state, {**metrics, **opt_metrics, "loss": loss}
     return scorer_step
 
 
@@ -53,4 +75,5 @@ def make_decode_step(cfg, sample: bool = False):
     return serve_step
 
 
-__all__ = ["make_decode_step", "make_prefill_step", "make_scorer_train_step"]
+__all__ = ["make_decode_step", "make_prefill_step", "make_scorer_train_step",
+           "make_train_step", "value_and_grad"]
