@@ -156,6 +156,20 @@ Phases, each printing one JSON line:
    the same microbatches, every stage with a gradient; (f) granite-moe,
    xlstm, zamba2 and whisper at full width, one pattern period deep:
    one float32 step held as (a), one step in their own dtype;
+8e. mesh — the sharding layer on DTensor, one line a part: (a)
+   ``launch.train.build(data_axis=2, model_axis=2)`` clamps to a
+   ``(1, 1)`` mesh on one card (a one-rank NCCL group) and runs a first
+   and MESH_STEPS timed steps of smollm-135m at full width (B 8 x S 256)
+   bit for bit equal to the plain ``build()``'s; the same steps on a ``(1, 1)`` DTensor
+   mesh (``launch.train.shard_training``), DTensor's dispatch cost; ms a
+   step for each; (b) ``python -m repro_torch.launch.dryrun`` of
+   smollm-135m ``train_4k`` on 16 x 16 and 2 x 16 x 16 and ``decode_32k``
+   on 16 x 16, each in a subprocess started at the phase's start, over a
+   fake world (no device touched): peak bytes a device against 80 GB,
+   FLOPs, collective bytes by kind, roofline terms, seconds; (c) with more
+   than one card, 2 NCCL ranks (``torch.distributed.run``, this script's
+   ``--mesh-worker``) on a ``data=2`` mesh held to the one-card step
+   (``mesh_worker``); on one card a skip line;
 9. flash — the CUDA ``flash_attention`` through its entry points, with
    the launch counter at 0, on (a) layer 0's q, k, v of that full-width
    smollm at 4 x 2048 (projected and roped as ``attend_full`` does,
@@ -186,6 +200,7 @@ and exits non-zero; there is no CPU path.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -271,6 +286,14 @@ TRAIN_PP_STAGES, TRAIN_PP_MICRO, TRAIN_PP_SHAPE, TRAIN_PP_TOL = 3, 6, \
 TRAIN_FAMILIES = ("granite-moe-1b-a400m", "xlstm-125m", "zamba2-2.7b",
                   "whisper-tiny")
 TRAIN_FAMILY_SHAPE, TRAIN_UPDATE_TOL = (1, 64), 1e-6
+# mesh phase: MESH_STEPS launcher steps of MESH_SHAPE on each path; the
+# dry-run cells (arch, shape, --mesh), each a subprocess of at most
+# MESH_DRYRUN_TIMEOUT s; (c) 2 ranks held to one card (loss within
+# MESH_TOL, first moments through a float64 step, as the train phase)
+MESH_STEPS, MESH_SHAPE, MESH_TOL = 3, (8, 256), 1e-5
+MESH_DRYRUN = ((LM_ARCH, "train_4k", "single"), (LM_ARCH, "train_4k", "multi"),
+               (LM_ARCH, "decode_32k", "single"))
+MESH_DRYRUN_TIMEOUT = 600
 FLASH_A = (4, 2048)             # smollm layer 0: batch, sequence
 FLASH_B = (1, 4096)             # gemma3-12b local layer: batch, sequence
 FLASH_C_TAIL = (2, 512, 2048)   # batch, queries at the tail, keys
@@ -707,6 +730,7 @@ def main() -> int:
     moe_phase(dev)
     ssm_phase(dev, smi)
     train_phase(dev, smi)
+    mesh_phase(dev, smi)
     flash = flash_phase(dev, params)
     del params
 
@@ -2836,6 +2860,260 @@ def train_families(dev, failures) -> dict:
     return out
 
 
+def mesh_phase(dev, smi) -> None:
+    """The sharding layer on DTensor, one line a part: (a) the launcher on
+    a mesh that clamps to one card, and DTensor's cost on it, (b) the dry
+    runs, (c) two ranks on two cards where there are two. Every part
+    prints its numbers first; the phase then raises if a check failed."""
+    import tempfile
+    failures = []
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        dry = [(cell, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out],
+            env=dict(os.environ, PYTHONPATH=str(SRC)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cell in MESH_DRYRUN]
+        emit({"phase": "mesh", "card": smi, **mesh_launcher(dev, failures),
+              "seconds": time.perf_counter() - t0})
+        for line in mesh_dryruns(dry, out, failures):
+            emit({"phase": "mesh", "card": smi, **line})
+    t0 = time.perf_counter()
+    emit({"phase": "mesh", "card": smi, **mesh_ranks(failures),
+          "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"mesh: {failures}")
+
+
+def _timed_steps(step, params, opt_state, batches):
+    """Run ``step`` over ``batches``; (params, opt_state, metrics list, ms
+    of each step, synchronised)."""
+    import torch
+    ms, seen = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        seen.append(m)
+    return params, opt_state, seen, ms
+
+
+def mesh_launcher(dev, failures) -> dict:
+    """(a) ``build(data_axis=2, model_axis=2)`` on one card against
+    ``build()``, then the same steps on a ``(1, 1)`` DTensor mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm_specs
+    from repro_torch.sharding.api import tree_leaves
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+    B, S = MESH_SHAPE
+    args = (LM_ARCH, False, B, S, 100)
+    runs = {}
+    for name in ("plain", "build_2x2", "dtensor_1x1"):
+        if name == "dtensor_1x1":
+            cfg, params, _, step, _ = launch.build(*args, device=dev)
+            mesh = make_host_mesh(1, 1, device=dev)
+            opt = AdamW(lr=warmup_cosine(3e-4, 10, 100))   # build()'s
+            params, opt_state, step = launch.shard_training(
+                mesh, lm_specs(cfg), params, opt, make_train_step(cfg, opt))
+        else:
+            kw = {"data_axis": 2, "model_axis": 2} if name != "plain" else {}
+            cfg, params, opt_state, step, _ = launch.build(*args, device=dev,
+                                                           **kw)
+        batches = [_bigram(cfg, B, S, 1000 + i, dev)
+                   for i in range(MESH_STEPS + 1)]
+        params, opt_state, seen, ms = _timed_steps(step, params, opt_state,
+                                                   batches)
+        leaves = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                  for x in tree_leaves(params)]
+        runs[name] = {"leaves": leaves, "loss": [float(m["loss"])
+                                                 for m in seen], "ms": ms,
+                      "dtensor": hasattr(tree_leaves(params)[0],
+                                         "full_tensor")}
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+    group = {"backend": dist.get_backend(),
+             "world": dist.get_world_size()} if dist.is_initialized() else None
+    mesh_shape = list(make_host_mesh(2, 2, device=dev).shape)
+    dist.destroy_process_group()
+    ref = runs["plain"]
+
+    def bit_equal(run):
+        return run["loss"] == ref["loss"] and all(
+            torch.equal(x, y) for x, y in zip(ref["leaves"], run["leaves"],
+                                              strict=True))
+
+    def rel(run):
+        return max(float((x - y).abs().max() / max(float(x.abs().max()),
+                                                   1e-30))
+                   for x, y in zip(ref["leaves"], run["leaves"]))
+    out = {"part": "a_launcher", "arch": LM_ARCH, "shape": list(MESH_SHAPE),
+           "steps": MESH_STEPS, "group": group,
+           "build_2x2_mesh": mesh_shape}
+    for name, run in runs.items():
+        out[name] = {"dtensor": run["dtensor"], "loss": run["loss"],
+                     "ms_per_step": run["ms"][1:],
+                     "ms_per_step_median": float(np.median(run["ms"][1:])),
+                     "first_step_ms": run["ms"][0]}
+        if name != "plain":
+            out[name].update(bit_equal=bit_equal(run),
+                             max_rel_diff=rel(run))
+    out["dtensor_over_plain"] = (out["dtensor_1x1"]["ms_per_step_median"]
+                                 / out["plain"]["ms_per_step_median"])
+    if not (mesh_shape == [1, 1] and out["build_2x2"]["bit_equal"]
+            and not out["build_2x2"]["dtensor"]):
+        failures.append(f"a: build(2, 2) on {mesh_shape}, bit equal "
+                        f"{out['build_2x2']['bit_equal']}")
+    if not (out["dtensor_1x1"]["dtensor"]
+            and out["dtensor_1x1"]["max_rel_diff"] <= MESH_TOL):
+        failures.append(f"a: (1, 1) DTensor steps "
+                        f"{out['dtensor_1x1']['max_rel_diff']} from plain")
+    return out
+
+
+def mesh_dryruns(dry, out, failures) -> list:
+    """(b) Wait for each dry-run subprocess and read its record."""
+    lines = []
+    for (arch, shape, mesh), t0, proc in dry:
+        try:
+            log, _ = proc.communicate(timeout=max(
+                1.0, MESH_DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        wall = time.perf_counter() - t0
+        path = Path(out) / f"{arch}--{shape}--{mesh}.json"
+        line = {"part": "b_dryrun", "arch": arch, "shape": shape,
+                "mesh_kind": mesh, "returncode": proc.returncode,
+                "wall_s": wall}
+        if proc.returncode != 0 or not path.exists():
+            err = path.with_suffix(".error.json")
+            line["error"] = (json.loads(err.read_text())["error"]
+                             if err.exists() else log[-2000:])
+            failures.append(f"b: {arch} {shape} {mesh}: {line['error']}")
+        else:
+            rec = json.loads(path.read_text())
+            mem, r = rec["memory"], rec["roofline"]
+            line.update(
+                mesh=rec["mesh"], chips=rec["chips"],
+                n_params=rec["n_params"], lower_s=rec["lower_s"],
+                trace_s=rec["compile_s"], traced_ops=rec["traced_ops"],
+                memory=mem, peak_gb=mem["peak_bytes_est"] / 1e9,
+                fits_80gb=mem["fits"], cost=rec["cost"],
+                collectives=rec["collectives"],
+                model_flops_per_device=rec["model_flops_per_device"],
+                useful_flops_ratio=rec["useful_flops_ratio"], roofline=r)
+        lines.append(line)
+    return lines
+
+
+def mesh_ranks(failures) -> dict:
+    """(c) Two NCCL ranks on a ``data=2`` mesh of two cards, each held to
+    its own one-card step; a skip line on one card."""
+    import torch
+    if torch.cuda.device_count() < 2:
+        return {"part": "c_two_ranks", "ran": "skipped: one card"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"),
+         "--mesh-worker"], env=dict(os.environ, PYTHONPATH=str(SRC)),
+        capture_output=True, text=True, timeout=600)
+    got = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not got:
+        failures.append(f"c: rc {proc.returncode}: {proc.stderr[-2000:]}")
+        return {"part": "c_two_ranks", "ran": "failed",
+                "returncode": proc.returncode}
+    res = json.loads(got[-1][len("RESULT "):])
+    if not (res["loss_diff"] <= MESH_TOL
+            and res["m_vs_f64_worst_ratio"] <= 1.0
+            and res["params_vs_own_update"] <= TRAIN_UPDATE_TOL):
+        failures.append(f"c: {res}")
+    return {"part": "c_two_ranks", "ran": "ran", **res}
+
+
+def mesh_worker(device=None) -> int:
+    """One rank of (c), started by ``torch.distributed.run`` (``torchrun
+    --nproc-per-node N chip_smoke.py --mesh-worker``, one rank a card):
+    smollm-135m at full width, ``LM_CUT_LAYERS`` deep in float32, one
+    step of ``MESH_SHAPE`` on an ``(N, 1)`` mesh held to the one-device
+    step (loss within MESH_TOL, first moments held through a float64
+    step, new parameters within TRAIN_UPDATE_TOL of AdamW's update from
+    the mesh's own moments); rank 0 prints the result. ``--cpu``
+    rehearses it over gloo."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm_specs
+    from repro_torch.sharding.api import materialize, tree_leaves, tree_map
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+    rank = int(os.environ["LOCAL_RANK"])
+    if device == "cpu":
+        dev = torch.device("cpu")
+        dist.init_process_group("gloo")
+    else:
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("nccl")
+    cfg = scaled(get_config(LM_ARCH), dtype="float32",
+                 num_layers=LM_CUT_LAYERS)
+    specs = lm_specs(cfg)
+    opt = AdamW(lr=warmup_cosine(3e-4, 10, 100))
+    step = make_train_step(cfg, opt)
+    params = materialize(specs, torch.Generator().manual_seed(0), dev)
+    batch = _bigram(cfg, *MESH_SHAPE, 1000, dev)
+    p1, o1, m1 = step(params, opt.init(params), batch)
+    mesh = make_host_mesh(dist.get_world_size(), 1, device=dev)
+    ps, os_, mstep = launch.shard_training(mesh, specs, params, opt, step)
+    p2, o2, m2 = mstep(ps, os_, batch)
+
+    def whole(tree):
+        return [x.full_tensor() for x in tree_leaves(tree)]
+
+    def rel(a, b):
+        return max(float((x - y).abs().max() / max(float(x.abs().max()),
+                                                   1e-30))
+                   for x, y in zip(a, b))
+    # the split batch sums its gradients in another order: the mesh's
+    # first moments are held to a float64 step, within LM_F32_SLACK x the
+    # one-device float32 step's distance (or MESH_TOL), as the train phase
+    # holds the card to the CPU; new parameters to AdamW's update from
+    # the mesh's own moments (a gradient at the rounding level flips an
+    # entry's first step by 2 lr)
+    p64 = tree_map(lambda t: t.double(), params, is_leaf=torch.is_tensor)
+    _, o64, m64 = make_train_step(scaled(cfg, dtype="float64"), opt)(
+        p64, opt.init(p64), batch)
+    ratios = [_dist(y, x.cpu()) / max(LM_F32_SLACK * _dist(z, x.cpu()),
+                                      MESH_TOL)
+              for x, y, z in zip(tree_leaves(o64["m"]), whole(o2["m"]),
+                                 tree_leaves(o1["m"]))]
+    own = [adamw_from_moments(opt, x, m, v) for x, m, v in zip(
+        tree_leaves(params), whole(o2["m"]), whole(o2["v"]))]
+    res = {"mesh": list(mesh.shape), "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "loss": [float(m1["loss"]),
+                                                   float(m2["loss"])],
+           "loss_f64": float(m64["loss"]),
+           "loss_diff": abs(float(m1["loss"]) - float(m2["loss"])),
+           "m_rel_diff": rel(tree_leaves(o1["m"]), whole(o2["m"])),
+           "m_vs_f64_worst_ratio": max(ratios),
+           "params_vs_own_update": rel(own, whole(p2)),
+           "max_rel_diff": rel(tree_leaves(p1), whole(p2))}
+    if rank == 0:
+        print("RESULT " + json.dumps(res), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
 def flash_phase(dev, params) -> dict:
     """The CUDA flash attention kernel through its entry points against
     ``attention_ref`` on the card, with kernel, plain and SDPA times."""
@@ -3030,4 +3308,6 @@ def flash_phase(dev, params) -> dict:
 
 
 if __name__ == "__main__":
+    if "--mesh-worker" in sys.argv[1:]:
+        sys.exit(mesh_worker("cpu" if "--cpu" in sys.argv[1:] else None))
     sys.exit(main())

@@ -1,11 +1,20 @@
-"""Training launcher: the language model trained end to end on one
-device — the port of ``src/repro/launch/train.py``.
+"""Training launcher: the language model trained end to end — the port
+of ``src/repro/launch/train.py``.
 
-Wires together: config -> seeded weights on the device -> AdamW with a
-warmup-cosine schedule -> the fault-tolerant training loop
-(checkpoint/restart/straggler, ``repro_torch.train.fault``) ->
-replay-deterministic batches of a ``BigramStream``. Runs on the CUDA card unless ``--device cpu`` is
-given; a data or model mesh axis above 1 is ROADMAP Queue 1 item 10.7.
+Wires together: config -> seeded weights (sharded over a device mesh
+where one is asked for) -> AdamW with a warmup-cosine schedule -> the
+fault-tolerant training loop (checkpoint/restart/straggler,
+``repro_torch.train.fault``) -> replay-deterministic batches of a
+``BigramStream``. Runs on the CUDA card unless ``--device cpu`` is
+given.
+
+``build(data_axis=, model_axis=)`` above 1 trains on a ``("data",
+"model")`` mesh from ``launch.mesh.make_host_mesh``, one rank per device
+(``torchrun --nproc-per-node N``): parameters and AdamW's moments are
+DTensors placed by the logical-axis rules, ``step`` is replicated, the
+batch is split ``("data", None)``, and DTensor inserts the collectives.
+A mesh that clamps to ``(1, 1)`` (one rank) is the one-device program,
+so it keeps plain tensors.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --steps 20 --device cpu
@@ -21,8 +30,11 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import BigramStream
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm_specs
-from repro_torch.sharding.api import materialize, num_params
+from repro_torch.sharding.api import NamedSharding, P, device_put, \
+    distribute, is_dtensor, materialize, num_params, spec_shardings, \
+    use_mesh
 from repro_torch.train.fault import FaultConfig, FaultInjector, run_training
 from repro_torch.train.optimizer import AdamW, warmup_cosine
 from repro_torch.train.step import make_train_step
@@ -36,17 +48,45 @@ def build(arch: str, smoke: bool, batch: int, seq: int, steps: int,
     torch.Generator().manual_seed(0))`` on ``device`` (default: the CUDA
     card), AdamW's state and ``make_train_step``'s step. ``batch`` and
     ``seq`` are the reference's arguments; the weights do not depend on
-    them."""
-    if data_axis != 1 or model_axis != 1:
-        raise NotImplementedError(
-            f"build(data_axis={data_axis}, model_axis={model_axis}): a "
-            "device mesh for training is ROADMAP Queue 1 item 10.7")
+    them. With ``data_axis``/``model_axis`` above 1, see ``shard_training``:
+    the step then takes a whole batch (alike on every rank) and returns
+    whole metrics."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     opt = AdamW(lr=warmup_cosine(lr, max(10, steps // 20), steps))
-    params = materialize(lm_specs(cfg), torch.Generator().manual_seed(0),
-                         dev)
-    return cfg, params, opt.init(params), make_train_step(cfg, opt), dev
+    specs = lm_specs(cfg)
+    params = materialize(specs, torch.Generator().manual_seed(0), dev)
+    step = make_train_step(cfg, opt)
+    if data_axis * model_axis > 1:
+        mesh = make_host_mesh(data_axis, model_axis, device=dev)
+        if mesh.size() > 1:
+            params, opt_state, step = shard_training(mesh, specs, params,
+                                                     opt, step)
+            return cfg, params, opt_state, step, dev
+    return cfg, params, opt.init(params), step, dev
+
+
+def shard_training(mesh, specs, params, opt: AdamW, step):
+    """``(params, opt_state, mesh_step)`` on ``mesh``: ``params`` (whole,
+    alike on every rank) distributed to ``spec_shardings(specs, mesh)``,
+    AdamW's moments sharded like them and ``step`` replicated, and
+    ``step`` run under ``use_mesh(mesh)`` on the batch split ``("data",
+    None)``, its metrics gathered whole."""
+    with use_mesh(mesh):
+        params = device_put(params, spec_shardings(specs, mesh))
+        opt_state = opt.init(params)
+        opt_state["step"] = distribute(opt_state["step"],
+                                       NamedSharding(mesh, P()))
+    batch_sharding = NamedSharding(mesh, P("data", None))
+
+    def mesh_step(params, opt_state, batch):
+        with use_mesh(mesh):
+            batch = {k: v if is_dtensor(v) else distribute(v, batch_sharding)
+                     for k, v in batch.items()}
+            params, opt_state, metrics = step(params, opt_state, batch)
+        return params, opt_state, {k: v.full_tensor() if is_dtensor(v)
+                                   else v for k, v in metrics.items()}
+    return params, opt_state, mesh_step
 
 
 def main(argv=None, *, metrics_cb=None):
@@ -70,8 +110,10 @@ def main(argv=None, *, metrics_cb=None):
     cfg, params, opt_state, step, dev = build(
         args.arch, args.smoke, args.batch, args.seq, args.steps, lr=args.lr,
         device=args.device)
+    devices = (torch.distributed.get_world_size()
+               if torch.distributed.is_initialized() else 1)
     print(f"arch={cfg.name} params={num_params(lm_specs(cfg)):,} "
-          f"devices=1 device={dev}")
+          f"devices={devices} device={dev}")
 
     stream = BigramStream(cfg.vocab_size, seed=0)
 

@@ -33,7 +33,9 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import apply_rope
-from repro_torch.sharding.api import ParamSpec, constrain
+from repro_torch.sharding.api import ParamSpec, constrain, \
+    contiguous_grad, distribute_like, gather_dim, is_dtensor, reshape, \
+    shards_dim, write_slice
 
 Q_CHUNK = 1024  # q-chunk length above which the queries go in blocks
 
@@ -68,8 +70,8 @@ def attention_specs(cfg, cross=False) -> dict:
 def _proj(x, w):
     """'bsd,dnh->bsnh' as one matrix product."""
     d, n, h = w.shape
-    y = torch.matmul(x, w.to(x.dtype).reshape(d, n * h))
-    return y.reshape(*x.shape[:-1], n, h)
+    y = torch.matmul(x, reshape(w.to(x.dtype), d, n * h))
+    return reshape(y, *x.shape[:-1], n, h)
 
 
 def _project_q(params, x):
@@ -90,20 +92,55 @@ def _project_kv(params, x):
     return k, v
 
 
+def _sharded_heads(q, k, v, mask, scale):
+    """Attention over DTensors whose heads are sharded. DTensor cannot
+    flatten a batched product's sharded non-leading dim (the heads of the
+    5-D scores, in some torch versions), so: where the keys are split
+    along the sequence (a decode cache), the heads are gathered and
+    DTensor's own propagation goes on (``None`` and the new q, k, v);
+    else each rank attends its own batch rows and heads
+    (``local_map``; query heads ``i*g..`` go with key head ``i``, so
+    blocks of both stay aligned)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t.device_mesh for t in (q, k, v) if is_dtensor(t))
+    rep = (Replicate(),) * mesh.ndim
+    pq, pk, pv = (t.placements if is_dtensor(t) else rep for t in (q, k, v))
+    if not any(Shard(2) in p for p in (pq, pk, pv)):
+        return None, (q, k, v)
+    if any(Shard(1) in p for p in (pk, pv)):
+        return None, tuple(gather_dim(t, 2) for t in (q, k, v))
+    place = [Shard(0) if a == Shard(0) else Shard(2)
+             if a == b == c == Shard(2) else Replicate()
+             for a, b, c in zip(pq, pk, pv)]
+    return local_map(
+        lambda q, k, v, mask, scale: _gqa_scores_softmax_out(
+            contiguous_grad(q), contiguous_grad(k), contiguous_grad(v),
+            mask, scale), out_placements=place,
+        in_placements=(place, place, place, list(rep), None),
+        device_mesh=mesh, redistribute_inputs=True)(
+            q, k, v, mask, scale), None
+
+
 def _gqa_scores_softmax_out(q, k, v, mask, scale):
     """q: (B,Sq,nq,hd) k/v: (B,Sk,nkv,hd) mask: broadcastable (B,n,g,Sq,Sk)."""
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        out, qkv = _sharded_heads(q, k, v, mask, scale)
+        if out is not None:
+            return out
+        q, k, v = qkv
     B, Sq, nq, hd = q.shape
     nkv = k.shape[2]
     g = nq // nkv
     dt = torch.promote_types(q.dtype, k.dtype)    # as jnp.einsum promotes
-    qg = q.reshape(B, Sq, nkv, g, hd).permute(0, 2, 3, 1, 4)  # (B,n,g,Sq,hd)
+    qg = reshape(q, B, Sq, nkv, g, hd).permute(0, 2, 3, 1, 4)  # (B,n,g,Sq,hd)
     kt = k.permute(0, 2, 3, 1).unsqueeze(2)                    # (B,n,1,hd,Sk)
     scores = torch.matmul(qg.to(dt), kt.to(dt)).float() * scale
     scores = torch.where(mask, scores, torch.tensor(
         -1e30, dtype=scores.dtype, device=scores.device))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.matmul(probs, v.permute(0, 2, 1, 3).unsqueeze(2))
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, nq, hd)
+    return reshape(out.permute(0, 3, 1, 2, 4), B, Sq, nq, hd)
 
 
 def _full_attention(q, k, v, q_positions, k_positions, *, causal, window,
@@ -124,8 +161,8 @@ def _full_attention(q, k, v, q_positions, k_positions, *, causal, window,
 def _wo(params, out):
     """'bsnh,nhd->bsd' as one matrix product."""
     n, h, d = params["wo"].shape
-    y = torch.matmul(out.reshape(*out.shape[:-2], n * h),
-                     params["wo"].to(out.dtype).reshape(n * h, d))
+    y = torch.matmul(reshape(out, *out.shape[:-2], n * h),
+                     reshape(params["wo"].to(out.dtype), n * h, d))
     return constrain(y, "batch", None, "embed")
 
 
@@ -195,16 +232,39 @@ def init_kv_cache(cfg, batch, max_seq, *, window: Optional[int] = None,
     return cache
 
 
+def _put(cache, name, slots, val):
+    """``cache[name][:, slots] = val``. A fresh plain cache meeting
+    DTensor keys becomes a DTensor placed like them; a DTensor cache
+    sharded along its slots is written shard by shard
+    (``sharding.api.write_slice``)."""
+    if is_dtensor(val) and not is_dtensor(cache[name]):
+        cache[name] = distribute_like(cache[name], val)
+    dst = cache[name]
+    if shards_dim(dst, 1):
+        if not isinstance(slots, slice):
+            raise NotImplementedError(
+                "a ring write into a cache sharded along its slots")
+        write_slice(dst, 1, slots.start, val)
+    elif is_dtensor(dst) and not isinstance(slots, slice):
+        # slots whole on every rank: each writes its own shard (DTensor
+        # has no rule for index_put_ in some torch versions)
+        src = val.redistribute(dst.device_mesh, dst.placements) \
+            if is_dtensor(val) else distribute_like(val, dst)
+        dst.to_local()[:, slots] = src.to_local().to(dst.dtype)
+    else:
+        dst[:, slots] = val.to(dst.dtype)
+
+
 def _write(cache, slots, k, v):
     """k/v (B, n, nkv, hd) into ``slots`` (a slice or an index tensor of
     n slots), quantized first in an int8 cache; in place."""
     if "k_scale" in cache:
         k, ks = _quantize_kv(k)
         v, vs = _quantize_kv(v)
-        cache["k_scale"][:, slots] = ks
-        cache["v_scale"][:, slots] = vs
-    cache["k"][:, slots] = k.to(cache["k"].dtype)
-    cache["v"][:, slots] = v.to(cache["v"].dtype)
+        _put(cache, "k_scale", slots, ks)
+        _put(cache, "v_scale", slots, vs)
+    _put(cache, "k", slots, k)
+    _put(cache, "v", slots, v)
 
 
 def prefill_into_cache(cache, k, v, positions, *, window: Optional[int]):

@@ -33,6 +33,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import mlp, mlp_specs, rmsnorm, rmsnorm_spec
 from repro_torch.models.moe import moe_apply, moe_specs
+from repro_torch.sharding.api import batch_local
 
 # kind -> (specs, train, step, init_state) of its recurrent mixer
 _MIXERS = {
@@ -102,8 +103,10 @@ def block_apply_full(cfg, kind, params, x, positions, *, want_cache=False,
                                   device=x.device)
             prefill_into_cache(cache, k, v, positions, window=window)
     else:
-        out = _MIXERS[kind][1](params["mixer"], cfg, h,
-                               return_state=want_cache)
+        out = batch_local(
+            lambda prm, h: _MIXERS[kind][1](prm, cfg, h,
+                                            return_state=want_cache),
+            params["mixer"], h)
         out, cache = out if want_cache else (out, None)
     x, aux = _mlp_half(cfg, params, x + out)
     return x, cache, aux
@@ -116,7 +119,9 @@ def block_apply_step(cfg, kind, params, x, cache, pos):
         out, cache = attend_decode(params["attn"], cfg, h, cache, pos,
                                    window=_window(cfg, kind))
     else:
-        out, new = _MIXERS[kind][2](params["mixer"], cfg, h, cache)
+        out, new = batch_local(
+            lambda prm, h, st: _MIXERS[kind][2](prm, cfg, h, st),
+            params["mixer"], h, cache)
         for name, leaf in new.items():
             cache[name].copy_(leaf)
     x, _ = _mlp_half(cfg, params, x + out)

@@ -24,6 +24,7 @@ identity while grad is disabled, so serving is unchanged.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SHARED_ATTN, ModelConfig
@@ -33,8 +34,8 @@ from repro_torch.models.attention import attend_decode, attend_full, \
     attention_specs, _proj
 from repro_torch.models.common import cdtype, mlp, mlp_specs, rmsnorm, \
     rmsnorm_spec, sinusoidal_pos
-from repro_torch.sharding.api import ParamSpec, constrain, tree_map, \
-    tree_map_specs
+from repro_torch.sharding.api import ParamSpec, constrain, gather_dim, \
+    is_dtensor, tree_map, tree_map_specs
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -88,7 +89,17 @@ def lm_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, tokens, positions):
-    x = params["embed"][tokens].to(cdtype(cfg))
+    table = params["embed"]
+    if is_dtensor(table):
+        # DTensor's rules for advanced indexing break (its backward's
+        # index_put, a batch split over two mesh axes) where the
+        # embedding lookup's hold, and a lookup into vocab shards leaves
+        # masked partial sums that some torch versions cannot add to or
+        # send a gradient through: the vocab shards are gathered first
+        x = F.embedding(tokens, gather_dim(table, 0))
+    else:
+        x = table[tokens]
+    x = x.to(cdtype(cfg))
     if cfg.rope_theta <= 0.0:           # sinusoidal absolute positions
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)[None]
     return constrain(x, "batch", None, "embed")
@@ -253,9 +264,19 @@ def token_ce(logits, labels):
     """Per-token next-token cross-entropy, float32: the float32
     ``logsumexp`` of the logits less the label's logit. The reference sums
     ``logits * one_hot(labels)``, one non-zero term, so a ``gather`` is
-    the same value."""
+    the same value. DTensor has no working rule for a ``gather`` along a
+    sharded vocab dim, so sharded logits take the reference's form: the
+    label's logit is picked by a mask and summed (exactly: the other
+    terms are zeros)."""
     logz = torch.logsumexp(logits.float(), dim=-1)
-    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        label_logit = torch.where(labels.long()[..., None] == vocab, logits,
+                                  torch.zeros((), dtype=logits.dtype,
+                                              device=labels.device)).sum(-1)
+    else:
+        label_logit = torch.gather(logits, -1,
+                                   labels.long()[..., None])[..., 0]
     return logz - label_logit.float()
 
 

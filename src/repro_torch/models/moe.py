@@ -19,7 +19,8 @@ import math
 import torch
 
 from repro_torch.models.common import silu
-from repro_torch.sharding.api import ParamSpec, constrain
+from repro_torch.sharding.api import ParamSpec, constrain, \
+    contiguous_grad, is_dtensor, reshape, whole_local
 
 
 def moe_specs(cfg) -> dict:
@@ -78,8 +79,35 @@ def _positions_in_expert(top_idx, E):
     return torch.gather(pos, 1, flat)[:, 0].reshape(B, S, k)
 
 
+def _expert_parallel(params, xe):
+    """``_expert_ffn`` over DTensors, each rank on its own experts (those
+    of the mesh dims that split ``gate``'s experts) and batch rows, the
+    weights' other splits gathered: DTensor cannot flatten the batch and
+    sharded expert dims of a batched product in some torch versions."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ref = next(t for t in (xe, params["gate"]) if is_dtensor(t))
+    mesh = ref.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    pw = params["gate"].placements if is_dtensor(params["gate"]) else rep
+    px = xe.placements if is_dtensor(xe) else rep
+    ep = [p == Shard(0) for p in pw]
+    place_x = [Shard(1) if e else Shard(0) if p == Shard(0) else Replicate()
+               for e, p in zip(ep, px)]
+    place_w = [Shard(0) if e else Replicate() for e in ep]
+    names = ("gate", "up", "down")
+    return local_map(
+        lambda x, *w: _expert_ffn(
+            dict(zip(names, map(contiguous_grad, w))), contiguous_grad(x)),
+        out_placements=place_x, in_placements=(place_x,) + (place_w,) * 3,
+        device_mesh=mesh, redistribute_inputs=True)(
+            xe, *(params[n] for n in names))
+
+
 def _expert_ffn(params, xe):
     """xe: (B,E,C,d) -> (B,E,C,d)."""
+    if is_dtensor(xe) or is_dtensor(params["gate"]):
+        return _expert_parallel(params, xe)
     dt = xe.dtype
     h = silu(torch.matmul(xe, params["gate"].to(dt)))
     h = h * torch.matmul(xe, params["up"].to(dt))
@@ -103,11 +131,13 @@ def moe_scatter(params, cfg, x):
     rows = (flat_slot.reshape(B, S * k)
             + torch.arange(B, device=x.device)[:, None] * (E * C)).reshape(-1)
     xe = torch.zeros((B * E * C, d), dtype=x.dtype, device=x.device)
-    xe.index_add_(0, rows, x_rep * keep_f.reshape(-1, 1))
+    xe = whole_local(lambda xe, rows, src: xe.index_add(0, rows, src),
+                     xe, rows, x_rep * keep_f.reshape(-1, 1))
     xe = constrain(xe.reshape(B, E, C, d), "batch", "expert", None, None)
-    ye = _expert_ffn(params, xe).reshape(B * E * C, d)
+    ye = reshape(_expert_ffn(params, xe), B * E * C, d)
 
-    y_sel = ye[rows].reshape(B, S * k, d)                       # (B,Sk,d)
+    y_sel = whole_local(lambda ye, rows: ye[rows], ye, rows)
+    y_sel = y_sel.reshape(B, S * k, d)                          # (B,Sk,d)
     w = top_w.reshape(B, S * k, 1).to(x.dtype) * keep_f
     y = torch.sum((y_sel * w).reshape(B, S, k, d), dim=2)
     return constrain(y, "batch", None, "embed"), aux

@@ -10,6 +10,9 @@ crash mid-write never corrupts the latest checkpoint.
 
 A tree is nested dicts / tuples / lists of tensors or NumPy arrays
 (``repro_torch.sharding.api`` flattens it as JAX does: dict keys sorted).
+A DTensor leaf is saved whole (every rank gathers it; rank 0 of the
+default process group writes the file), and ``restore(shardings=)``
+places leaves on a mesh again, whatever mesh saved them.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.sharding.api import tree_flatten_with_path, tree_map
+from repro_torch.sharding.api import NamedSharding, distribute, \
+    is_dtensor, tree_flatten_with_path, tree_map
 
 try:  # optional: fall back to uncompressed checkpoints when unavailable
     import zstandard
@@ -40,10 +44,20 @@ def _flatten(tree) -> Dict[str, Any]:
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A NumPy copy of a leaf that no later write to the leaf can reach."""
+    """A NumPy copy of a leaf that no later write to the leaf can reach
+    (a DTensor's whole value)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy().copy()
     return np.array(leaf)
+
+
+def _writes_here() -> bool:
+    """Rank 0 of the default process group, or a process without one."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
 
 
 def _torch_dtype(leaf) -> torch.dtype:
@@ -60,8 +74,10 @@ def save(path: os.PathLike, step: int, tree: Any,
     the caller may go on changing its tensors; with ``async_`` the
     started thread is returned (join it before reading the file)."""
     path = Path(path)
-    path.mkdir(parents=True, exist_ok=True)
     host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
+    if not _writes_here():
+        return None
+    path.mkdir(parents=True, exist_ok=True)
 
     def _write():
         payload = {
@@ -112,6 +128,12 @@ def _row_blocks(a: np.ndarray, mesh, dtype: torch.dtype, key: str):
                  for i, d in enumerate(mesh.devices))
 
 
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
             device: DeviceLike = None, shardings: Any = None):
     """Load into the structure of ``template`` (a tree of tensors or
@@ -121,13 +143,14 @@ def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
     the template and ``ValueError`` on a shape mismatch, as the reference
     does.
 
-    ``shardings``: a tree matching ``template`` with a camera mesh
-    (``repro_torch.core.fleet.CameraMesh``: anything with ``.devices``)
-    or ``None`` at each leaf, the placement the reference's
-    ``NamedSharding`` tree gives. A leaf with a mesh comes back as the
-    tuple of its leading-row blocks, block ``i`` on the mesh's device
-    ``i``; a leaf with ``None`` comes back whole on ``device``. The file
-    holds global arrays, so any mesh restores it."""
+    ``shardings``: a tree matching ``template`` with, at each leaf,
+    ``None``, a ``sharding.api.NamedSharding`` over a device mesh, or a
+    camera mesh (``repro_torch.core.fleet.CameraMesh``: anything with
+    ``.devices``). A leaf with a ``NamedSharding`` comes back as a DTensor
+    with its placements (on the mesh's device type); a leaf with a camera
+    mesh as the tuple of its leading-row blocks, block ``i`` on the mesh's
+    device ``i``; a leaf with ``None`` whole on ``device``. The file holds
+    global arrays, so any mesh restores it."""
     dev = resolve_device(device)
     path = Path(path)
     step = step if step is not None else latest_step(path)
@@ -156,7 +179,10 @@ def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
             raise ValueError(f"{k}: ckpt shape {a.shape} != template "
                              f"{tuple(t.shape)}")
         mesh = flat_shard.get(k)
-        if mesh is not None:
+        if isinstance(mesh, NamedSharding):
+            leaves.append(distribute(torch.from_numpy(a.copy()).to(
+                _mesh_device(mesh.mesh), _torch_dtype(t)), mesh))
+        elif mesh is not None:
             leaves.append(_row_blocks(a, mesh, _torch_dtype(t), k))
         else:
             leaves.append(torch.from_numpy(a.copy()).to(dev, _torch_dtype(t)))

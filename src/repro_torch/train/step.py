@@ -9,22 +9,26 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import lm_decode_step, lm_loss, lm_prefill
-from repro_torch.sharding.api import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.api import gather_dim, is_dtensor, tree_leaves, \
+    tree_map, tree_unflatten
 from repro_torch.train.optimizer import AdamW
 
 
 def value_and_grad(loss_fn, params, *args):
     """``jax.value_and_grad(loss_fn, has_aux=True)(params, *args)`` on
     autograd: ``((loss, metrics), grads)``, ``grads`` a tree like
-    ``params`` (zeros for a leaf the loss does not reach), the loss and
+    ``params`` (zeros for a leaf the loss does not reach; a DTensor
+    parameter's gradient placed as the parameter is), the loss and
     metrics detached."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(live)
     with torch.enable_grad():
         loss, metrics = loss_fn(live, *args)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
-                                    for p, g in zip(leaves, grads)])
+    grads = tree_unflatten(params, [
+        torch.zeros_like(p) if g is None else
+        g.redistribute(p.device_mesh, p.placements) if is_dtensor(g) else g
+        for p, g in zip(leaves, grads)])
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), grads
 
@@ -70,7 +74,9 @@ def make_decode_step(cfg, sample: bool = False):
         """One-token decode for a running batch; greedy next token
         ``(B, 1)`` int32. ``caches`` is updated in place and returned."""
         caches, logits = lm_decode_step(cfg, params, caches, tokens, pos)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        # the argmax of vocab shards is unreliable in some torch versions
+        next_tok = torch.argmax(gather_dim(logits, -1), dim=-1).to(
+            torch.int32)[:, None]
         return caches, next_tok, logits
     return serve_step
 

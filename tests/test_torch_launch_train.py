@@ -2,8 +2,8 @@
 end to end on the CPU at smollm's smoke config: a run with an injected
 fault restarts once and ends on its final checkpoint, a second run
 resumes from it, the loss falls, and without a card every entry point
-raises instead of running on the CPU. Counts and checkpoint steps are
-exact."""
+raises instead of running on the CPU; a mesh asked for in one process is
+the one-device program. Counts and checkpoint steps are exact."""
 import pytest
 import torch
 
@@ -54,12 +54,19 @@ def test_build_is_seeded():
 
 
 def test_refusals_without_a_card_or_with_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="10.7"):
-        launch.build("smollm-135m", True, 4, 32, 10, data_axis=2,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="10.7"):
-        launch.build("smollm-135m", True, 4, 32, 10, model_axis=2,
-                     device="cpu")
+    # a mesh no longer refuses: in one process it clamps to (1, 1), the
+    # one-device program (tests/test_torch_mesh.py, test_torch_distributed.py)
+    plain = launch.build("smollm-135m", True, 4, 32, 10, device="cpu")
+    try:
+        for axes in ({"data_axis": 2}, {"model_axis": 2}):
+            meshed = launch.build("smollm-135m", True, 4, 32, 10,
+                                  device="cpu", **axes)
+            assert all(type(y) is torch.Tensor and torch.equal(x, y)
+                       for x, y in zip(tree_leaves(plain[1]),
+                                       tree_leaves(meshed[1])))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     if not torch.cuda.is_available():      # the default is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch.main(["--smoke", "--steps", "1",
