@@ -164,9 +164,11 @@ Phases, each printing one JSON line:
    mesh (``launch.train.shard_training``), DTensor's dispatch cost; ms a
    step for each; (b) ``python -m repro_torch.launch.dryrun`` of
    smollm-135m ``train_4k`` on 16 x 16 and 2 x 16 x 16 and ``decode_32k``
-   on 16 x 16, each in a subprocess started at the phase's start, over a
-   fake world (no device touched): peak bytes a device against 80 GB,
-   FLOPs, collective bytes by kind, roofline terms, seconds; (c) with more
+   on 16 x 16, each in a subprocess started once (a) has ended (so
+   that (a)'s host-bound steps have the host to themselves), over a
+   fake world (no device touched): peak bytes a device against 80 GB
+   and the largest allocations live at that peak, FLOPs, collective
+   bytes by kind, roofline terms, seconds; (c) with more
    than one card, 2 NCCL ranks (``torch.distributed.run``, this script's
    ``--mesh-worker``) on a ``data=2`` mesh held to the one-card step
    (``mesh_worker``); on one card a skip line;
@@ -2867,16 +2869,16 @@ def mesh_phase(dev, smi) -> None:
     prints its numbers first; the phase then raises if a check failed."""
     import tempfile
     failures = []
+    t0 = time.perf_counter()     # (a) first, with the host to itself
+    emit({"phase": "mesh", "card": smi, **mesh_launcher(dev, failures),
+          "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
         dry = [(cell, time.perf_counter(), subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out],
             env=dict(os.environ, PYTHONPATH=str(SRC)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             for cell in MESH_DRYRUN]
-        emit({"phase": "mesh", "card": smi, **mesh_launcher(dev, failures),
-              "seconds": time.perf_counter() - t0})
         for line in mesh_dryruns(dry, out, failures):
             emit({"phase": "mesh", "card": smi, **line})
     t0 = time.perf_counter()

@@ -51,6 +51,20 @@ from repro_torch.train.step import make_decode_step, make_prefill_step, \
     make_train_step
 
 FSDP_RULES = {**DEFAULT_RULES, "embed": ("data",)}
+# the reference's ``--opt`` levers (``cfg.opt_*``) that the port's models
+# read; the others (decode_carry, seq_shard, attn_remat, chunk_remat)
+# shape XLA's scan and remat, which the port has no counterpart of
+PORT_LEVERS = ("head_nofsdp", "kv_int8")
+
+
+def check_opts(opts) -> None:
+    """Raise ``ValueError`` naming each lever of ``opts`` that the port
+    does not implement, so that no record claims a lever it lacks."""
+    missing = [o for o in opts if o not in PORT_LEVERS]
+    if missing:
+        raise ValueError(f"the port does not implement --opt "
+                         f"{', '.join(missing)} (it has "
+                         f"{', '.join(PORT_LEVERS)})")
 
 
 def _dp_axes(mesh):
@@ -122,7 +136,8 @@ class Compiled:
     def memory_analysis(self) -> dict:
         return {"argument_bytes": self.argument_bytes,
                 "output_bytes": self.output_bytes,
-                "temp_bytes": self.recorder.peak_bytes}
+                "temp_bytes": self.recorder.peak_bytes,
+                "temp_at_peak": self.recorder.peak_allocations}
 
     def cost_analysis(self) -> dict:
         return {"flops": float(self.recorder.flops),
@@ -148,12 +163,12 @@ def lower_cell(arch: str, shape_name: str, mesh, *, fsdp: bool = True,
                unroll: bool = False, opts: tuple = (), config=None,
                shape=None):
     """``(Lowered, n_params, cfg)``. ``unroll`` is the reference's
-    argument: the port's layers are a Python loop already. ``config`` and
-    ``shape`` (a ``ShapeConfig``), if given, stand in for the named ones
-    (a smoke-size cell)."""
+    argument and changes nothing: the port's layers are a Python loop
+    already. ``opts`` outside ``PORT_LEVERS`` raise ``ValueError``.
+    ``config`` and ``shape`` (a ``ShapeConfig``), if given, stand in for
+    the named ones (a smoke-size cell)."""
+    check_opts(opts)
     cfg = config or get_config(arch)
-    if unroll:
-        cfg = dataclasses.replace(cfg, scan_layers=False)
     if opts:
         cfg = dataclasses.replace(cfg, **{f"opt_{o}": True for o in opts})
     shape = shape or SHAPES[shape_name]
@@ -270,9 +285,13 @@ def main(argv=None):
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--opt", action="append", default=[],
-                    help="enable beyond-paper levers: head_nofsdp, "
-                         "decode_carry, seq_shard, attn_remat")
+                    help="enable beyond-paper levers: "
+                         + ", ".join(PORT_LEVERS))
     args = ap.parse_args(argv)
+    try:
+        check_opts(args.opt)
+    except ValueError as e:
+        ap.error(str(e))
 
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)

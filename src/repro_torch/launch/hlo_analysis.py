@@ -20,6 +20,7 @@ lower bound.
 """
 from __future__ import annotations
 
+import heapq
 import weakref
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -35,11 +36,12 @@ PEAK_FLOPS = 989e12          # bf16 FLOP/s, tensor cores, dense
 HBM_BW = 3.35e12             # bytes/s
 LINK_BW = 450e9              # bytes/s, NVLink 4, per direction
 DEVICE_BYTES = 80e9          # HBM capacity
+PEAK_GROUPS = 12             # allocation groups kept at the peak
 
 # DTensor's collectives: the functional ones, and its own shard-to-shard
 # all-to-all (``_dtensor.shard_dim_alltoall``)
-_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
-                          "_dtensor")
+_FUNCTIONAL_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+_COLLECTIVE_NAMESPACES = _FUNCTIONAL_NAMESPACES + ("_dtensor",)
 _KINDS = (("all_reduce", "all-reduce"), ("all_gather", "all-gather"),
           ("reduce_scatter", "reduce-scatter"), ("all_to_all", "all-to-all"),
           ("alltoall", "all-to-all"), ("permute", "collective-permute"),
@@ -101,8 +103,11 @@ class StepRecorder(TorchDispatchMode):
     - ``bytes``: each op's local operand and output bytes, unfused (XLA's
       "bytes accessed" counts after fusion); views move nothing;
     - ``peak_bytes``: the peak of live bytes allocated by the ops it saw,
-      followed through weak references (meta tensors allocate nothing,
-      so this is the count that a device would hold).
+      collectives' outputs included, followed through weak references
+      (meta tensors allocate nothing, so this is the count that a device
+      would hold);
+    - ``peak_allocations``: what was live at that peak, grouped by the
+      op, shape and dtype that made it, the ``PEAK_GROUPS`` largest.
 
     ``device_type``, if given, is the program's device: ops on tensors
     of another (DTensor's own bookkeeping of shard sizes runs on small
@@ -117,9 +122,51 @@ class StepRecorder(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.ops = 0
+        self._live = {}          # (op, shape, dtype) -> [count, bytes]
+        self._at_peak = []
+        self._peak_unread = False
 
-    def _free(self, n: int) -> None:
+    def _snapshot(self) -> None:
+        self._at_peak = heapq.nlargest(
+            PEAK_GROUPS, ((k, c, b) for k, (c, b) in self._live.items()),
+            key=lambda e: e[2])
+        self._peak_unread = False
+
+    def _alloc(self, func, t: torch.Tensor) -> None:
+        n = _nbytes(t)
+        key = (str(func), tuple(t.shape), str(t.dtype).replace("torch.", ""))
+        entry = self._live.setdefault(key, [0, 0])
+        entry[0] += 1
+        entry[1] += n
+        self.live_bytes += n
+        weakref.finalize(t, self._free, key, n)
+
+    def _free(self, key, n: int) -> None:
+        if self._peak_unread:    # the first free after a new peak
+            self._snapshot()
         self.live_bytes -= n
+        entry = self._live[key]
+        entry[0] -= 1
+        entry[1] -= n
+        if not entry[0]:
+            del self._live[key]
+
+    def _allocated(self, func, outs) -> None:
+        for t in outs:
+            self._alloc(func, t)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self._peak_unread = True
+
+    @property
+    def peak_allocations(self) -> list:
+        """``[{"op", "shape", "dtype", "count", "bytes"}, ...]`` live at
+        the peak, largest first."""
+        if self._peak_unread:    # nothing freed since: live is the peak
+            self._snapshot()
+        return [{"op": op, "shape": list(shape), "dtype": dtype,
+                 "count": c, "bytes": b}
+                for (op, shape, dtype), c, b in self._at_peak]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -140,7 +187,10 @@ class StepRecorder(TorchDispatchMode):
         kind = collective_kind(func)
         if kind is not None:
             self.collectives.append((kind, sum(map(_nbytes, outs))))
+            self._allocated(func, outs)
             return out
+        if getattr(func, "namespace", None) in _FUNCTIONAL_NAMESPACES:
+            return out                 # a wait or wrapper of a collective
         returns = func._schema.returns
         aliases = [r.alias_info for r in returns if r.alias_info is not None]
         if aliases and not any(a.is_write for a in aliases):
@@ -153,11 +203,7 @@ class StepRecorder(TorchDispatchMode):
                if isinstance(t, torch.Tensor)]
         self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         if not aliases:                # fresh outputs: live until freed
-            for t in outs:
-                n = _nbytes(t)
-                self.live_bytes += n
-                weakref.finalize(t, self._free, n)
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            self._allocated(func, outs)
         return out
 
 

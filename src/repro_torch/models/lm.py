@@ -35,7 +35,7 @@ from repro_torch.models.attention import attend_decode, attend_full, \
 from repro_torch.models.common import cdtype, mlp, mlp_specs, rmsnorm, \
     rmsnorm_spec, sinusoidal_pos
 from repro_torch.sharding.api import ParamSpec, constrain, gather_dim, \
-    is_dtensor, tree_map, tree_map_specs
+    is_dtensor, shards_dim, tree_map, tree_map_specs
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -89,17 +89,12 @@ def lm_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, tokens, positions):
-    table = params["embed"]
-    if is_dtensor(table):
-        # DTensor's rules for advanced indexing break (its backward's
-        # index_put, a batch split over two mesh axes) where the
-        # embedding lookup's hold, and a lookup into vocab shards leaves
-        # masked partial sums that some torch versions cannot add to or
-        # send a gradient through: the vocab shards are gathered first
-        x = F.embedding(tokens, gather_dim(table, 0))
-    else:
-        x = table[tokens]
-    x = x.to(cdtype(cfg))
+    # DTensor's rules for advanced indexing break (its backward's
+    # index_put, a batch split over two mesh axes) where the embedding
+    # lookup's hold, and a lookup into vocab shards leaves masked partial
+    # sums that some torch versions cannot add to or send a gradient
+    # through: the vocab shards are gathered first (a no-op unsharded)
+    x = F.embedding(tokens, gather_dim(params["embed"], 0)).to(cdtype(cfg))
     if cfg.rope_theta <= 0.0:           # sinusoidal absolute positions
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)[None]
     return constrain(x, "batch", None, "embed")
@@ -107,7 +102,12 @@ def embed_tokens(cfg, params, tokens, positions):
 
 def logits_fn(cfg, params, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x, head.to(x.dtype))
+    # x summed over "model" (a norm of partial sums is one) and the
+    # head's d_model shards (FSDP) gathered, before the product: else
+    # DTensor splits the contraction and leaves partial logits whole
+    # along the vocab (both no-ops unsharded)
+    x = constrain(x, "batch", None, "embed")
+    logits = torch.matmul(x, gather_dim(head, 0).to(x.dtype))
     vp = logits.shape[-1]
     if vp != cfg.vocab_size:            # mask padded vocab entries
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
@@ -265,9 +265,11 @@ def token_ce(logits, labels):
     ``logsumexp`` of the logits less the label's logit. The reference sums
     ``logits * one_hot(labels)``, one non-zero term, so a ``gather`` is
     the same value. DTensor has no working rule for a ``gather`` along a
-    sharded vocab dim, so sharded logits take the reference's form: the
+    sharded vocab dim, so DTensor logits take the reference's form: the
     label's logit is picked by a mask and summed (exactly: the other
-    terms are zeros)."""
+    terms are zeros). Logits split along the vocab: ``_vocab_sharded_ce``."""
+    if shards_dim(logits, -1):
+        return _vocab_sharded_ce(logits, labels)
     logz = torch.logsumexp(logits.float(), dim=-1)
     if is_dtensor(logits):
         vocab = torch.arange(logits.shape[-1], device=labels.device)
@@ -278,6 +280,60 @@ def token_ce(logits, labels):
         label_logit = torch.gather(logits, -1,
                                    labels.long()[..., None])[..., 0]
     return logz - label_logit.float()
+
+
+class _SumOverShards(torch.autograd.Function):
+    """The sum of each rank's partial result over ``groups`` (the mesh
+    dims that split the vocab). Its gradient passes through: the sum's
+    gradient is alike on every rank, and each partial's is that."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        return _all_reduce(t, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _all_reduce(t, op, groups):
+    from torch.distributed import _functional_collectives as funcol
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+    return t
+
+
+def _vocab_sharded_ce(logits, labels):
+    """``token_ce`` of DTensor logits split along the vocab, each rank
+    on its own (batch rows, vocab slice): the max, the sum of
+    exponentials and the masked label logit are partial results over the
+    vocab shards, summed as (B, S) tensors, as the reference's
+    partitioned program does. DTensor's own rules for ``logsumexp``, for
+    the mask and for the gradient's broadcast gather the logits whole
+    along the vocab, or the batch, first. The max is taken apart from
+    the gradient, as in ``logsumexp``'s own."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, \
+        distribute_tensor
+    mesh, vd = logits.device_mesh, logits.ndim - 1
+    place = [Replicate() if p.is_partial() else p for p in logits.placements]
+    logits = logits.redistribute(mesh, place)
+    rows = [Replicate() if p == Shard(vd) else p for p in place]
+    groups = [mesh.get_group(i) for i, p in enumerate(place)
+              if p == Shard(vd)]
+    x = logits.to_local()
+    lab = labels.redistribute(mesh, rows).to_local()
+    vocab = distribute_tensor(
+        torch.arange(logits.shape[-1], device=x.device), mesh,
+        [Shard(0) if p == Shard(vd) else Replicate() for p in place],
+        src_data_rank=None).to_local()
+    xf = x.float()
+    m = _all_reduce(xf.detach().amax(-1), "max", groups)
+    sum_exp = _SumOverShards.apply((xf - m[..., None]).exp().sum(-1), groups)
+    label_logit = _SumOverShards.apply(torch.where(
+        lab.long()[..., None] == vocab, x,
+        torch.zeros((), dtype=x.dtype, device=x.device)).sum(-1), groups)
+    ce = sum_exp.log() + m - label_logit.float()
+    return DTensor.from_local(ce, mesh, rows, run_check=False)
 
 
 def lm_loss(cfg, params, batch):

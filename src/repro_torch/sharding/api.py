@@ -365,6 +365,24 @@ def _place(x: torch.Tensor, mesh, placements):
     return distribute_tensor(x, mesh, placements, src_data_rank=None)
 
 
+def sharding_of(x) -> Optional[NamedSharding]:
+    """The ``NamedSharding`` that places the DTensor ``x`` (``None`` for
+    a plain tensor): the inverse of ``NamedSharding.placements``."""
+    if not is_dtensor(x):
+        return None
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    entries = [[] for _ in range(x.ndim)]
+    for ax, p in zip(mesh.mesh_dim_names, x.placements):
+        if isinstance(p, Shard):
+            entries[p.dim].append(ax)
+        elif not p.is_replicate():
+            raise ValueError(f"{p}: a partial value has no sharding")
+    return NamedSharding(mesh, P(*(
+        None if not e else e[0] if len(e) == 1 else tuple(e)
+        for e in entries)))
+
+
 def distribute(x: torch.Tensor, sharding: NamedSharding):
     """``x`` (alike on every rank) as a DTensor placed by ``sharding``."""
     return _place(x, sharding.mesh, sharding.placements)
@@ -604,7 +622,7 @@ __all__ = ["AbstractMesh", "DEFAULT_RULES", "DTYPES", "NamedSharding", "P",
            "is_spec", "materialize", "mesh_shape",
            "num_params", "partition_spec", "reshape", "resolve_axis",
            "spec_leaves",
-           "shards_dim", "spec_partition_specs", "spec_shapes",
+           "sharding_of", "shards_dim", "spec_partition_specs", "spec_shapes",
            "spec_shardings",
            "tree_flatten_with_path", "tree_leaves", "tree_map",
            "tree_map_specs", "tree_unflatten", "use_mesh", "whole_local",

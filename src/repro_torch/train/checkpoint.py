@@ -192,6 +192,10 @@ def restore(path: os.PathLike, template: Any, *, step: Optional[int] = None,
 
 
 def prune(path: os.PathLike, keep: int = 3) -> None:
+    """Delete all but the latest ``keep`` checkpoints; in a process
+    group, rank 0 alone, as it alone writes."""
+    if not _writes_here():
+        return
     path = Path(path)
     ckpts = sorted(p for p in path.glob("*.ckpt") if p.stem.isdigit())
     for p in ckpts[:-keep]:

@@ -15,6 +15,15 @@ Policy:
     slower than ``straggler_factor`` x median are counted and reported;
   * the data pipeline is re-seeded per step index, so replayed steps see
     identical data (deterministic recovery).
+
+A state of DTensors (``launch.train.build`` on a mesh, one rank a
+device) is saved whole by rank 0 and restored onto each leaf's own
+placements. Every rank restores the same step: rank 0 finishes its
+pending write, then the ranks meet at a barrier before they look for the
+latest checkpoint, and again when the loop ends. The ranks run one
+program, so a failure must reach them all, as an injected fault does; a
+rank that fails alone leaves the others in a collective until the
+process group's timeout.
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.sharding.api import tree_leaves
+from repro_torch.sharding.api import is_dtensor, sharding_of, tree_leaves, \
+    tree_map
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -64,8 +74,18 @@ class TrainReport:
 
 def _restore(path, state):
     """The latest checkpoint under ``path`` in ``state``'s structure, on
-    the device of ``state``'s first leaf."""
-    return ckpt.restore(path, state, device=tree_leaves(state)[0].device)
+    the device of ``state``'s first leaf; a DTensor leaf placed as it
+    is."""
+    return ckpt.restore(path, state, device=tree_leaves(state)[0].device,
+                        shardings=tree_map(sharding_of, state,
+                                           torch.is_tensor))
+
+
+def _meet(state) -> None:
+    """A barrier of the default process group where ``state`` is
+    sharded over a mesh."""
+    if any(is_dtensor(x) for x in tree_leaves(state, torch.is_tensor)):
+        torch.distributed.barrier()
 
 
 def run_training(step_fn: Callable, state: dict, batch_fn: Callable,
@@ -77,6 +97,7 @@ def run_training(step_fn: Callable, state: dict, batch_fn: Callable,
     batch_fn(step) -> batch (deterministic per step for replay).
     """
     report = TrainReport()
+    _meet(state)
     start = ckpt.latest_step(fcfg.ckpt_dir)
     step0 = 0
     if start is not None:
@@ -121,6 +142,7 @@ def run_training(step_fn: Callable, state: dict, batch_fn: Callable,
             if pending_save is not None:
                 pending_save.join()
                 pending_save = None
+            _meet(state)
             last = ckpt.latest_step(fcfg.ckpt_dir)
             if last is not None:
                 state, step, _ = _restore(fcfg.ckpt_dir, state)
@@ -128,6 +150,7 @@ def run_training(step_fn: Callable, state: dict, batch_fn: Callable,
                 step = 0
     if pending_save is not None:
         pending_save.join()
+    _meet(state)
     return report
 
 

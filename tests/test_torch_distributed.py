@@ -6,6 +6,7 @@ One world of 4 ranks checks, rank by rank, that each DTensor shard holds
 the NumPy slice its mesh coordinate should (JAX's major-to-minor order),
 that a sharded float32 train step matches the one-device step,
 that ``launch.train.build(data_axis=2, model_axis=2)`` trains on the mesh,
+alone and under the fault-tolerant training loop with an injected fault,
 that MoE, sliding-window and recurrent losses and decode steps over
 slot-sharded caches match the one-device path, and saves a sharded
 checkpoint. A second world of 2
@@ -118,6 +119,42 @@ results["build_mesh"] = list(tree_leaves(pb)[0].device_mesh.shape)
 _, _, mb = sb(pb, ob, bb)
 _, _, m1b = s1b(p1b, o1b, bb)
 results["build_loss"] = [float(m1b["loss"]), float(mb["loss"])]
+
+# the fault-tolerant training loop on the mesh: a fault injected before step 3
+# restores step 2's checkpoint onto the mesh's placements and replays;
+# every step and the final checkpoint equal a run without the fault
+from repro_torch.sharding.api import is_dtensor, spec_shapes
+from repro_torch.train.fault import FaultConfig, FaultInjector, run_training
+
+def fault_run(name, injector):
+    cfg_f, pf, of, sf, _ = launch.build("smollm-135m", True, 4, 16, 5, data_axis=2,
+                                        model_axis=2, device="cpu")
+    seen, placed = [], []
+
+    def step_fn(state, b):
+        placed.append(all(is_dtensor(x) for x in tree_leaves(state)))
+        p, o, m = sf(state["params"], state["opt_state"], b)
+        return {"params": p, "opt_state": o}, m
+    ckdir = os.path.join(os.environ["CKPT_DIR"], name)
+    rep = run_training(step_fn, {"params": pf, "opt_state": of},
+                       lambda i: batch_of(cfg_f, 4, 16, 100 + i), 5,
+                       FaultConfig(ckpt_dir=ckdir, ckpt_every=2, keep=2),
+                       injector=injector,
+                       metrics_cb=lambda i, m, dt: seen.append([i, m["loss"]]))
+    saved = ckpt.restore(ckdir, {"params": spec_shapes(lm_specs(cfg_f)), "opt_state": of},
+                         device="cpu")[0]
+    return rep, seen, placed, saved, sorted(os.listdir(ckdir))
+
+rep_a, seen_a, placed_a, saved_a, files_a = fault_run("ft_clean", None)
+rep_b, seen_b, placed_b, saved_b, files_b = fault_run("ft_fault", FaultInjector([3]))
+results["fault"] = {
+    "restarts": [rep_a.restarts, rep_b.restarts],
+    "steps_run": [rep_a.steps_run, rep_b.steps_run],
+    "losses": [seen_a, seen_b],
+    "all_dtensor": all(placed_a) and all(placed_b),
+    "files": [files_a, files_b],
+    "final_equal": all(torch.equal(whole(x), whole(y)) for x, y in
+                       zip(tree_leaves(saved_a), tree_leaves(saved_b), strict=True))}
 
 # losses of other families over DTensors: MoE dispatch (granite), heads
 # sharded over "model" with local/global layers (gemma3), recurrent
@@ -270,6 +307,22 @@ def test_sharded_train_step_matches_one_device(worlds):
     assert four["train_params_rel"] <= 1e-5
     assert four["train_m_rel"] <= 1e-5
     assert four["step_placements"] == ["R", "R"]
+
+
+def test_fault_tolerant_training_restores_onto_the_mesh(worlds):
+    got = worlds[0]["fault"]
+    assert got["restarts"] == [0, 1]
+    assert got["steps_run"] == [5, 6]          # step 2 replayed
+    clean, faulty = got["losses"]
+    assert [i for i, _ in faulty] == [0, 1, 2, 2, 3, 4]
+    replay = dict(faulty[:3] + faulty[4:])
+    assert dict(clean) == replay and faulty[3] == faulty[2]
+    assert got["all_dtensor"]                  # the restored state too
+    # rank 0 alone writes and prunes (an async write may land after the
+    # prune, which then keeps one more)
+    assert all(f[-1] == "0000000005.ckpt" and 2 <= len(f) <= 3
+               for f in got["files"])
+    assert got["final_equal"]
 
 
 def test_launch_build_trains_on_the_mesh(worlds):

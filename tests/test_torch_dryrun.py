@@ -11,7 +11,12 @@ local program of rank 0.
   ``FlopCounterMode``'s count of the plain step, and a product sharded
   four ways counts a quarter of its global FLOPs.
 - ``main`` writes the reference's JSON layout, ``.error.json`` for a cell
-  that fails, and a skip record for a skipped cell."""
+  that fails, and a skip record for a skipped cell; the reference's
+  ``--opt`` levers that the port lacks are refused, its own applied.
+- ``StepRecorder`` keeps what is live at the peak, collectives' outputs
+  included; a sharded train cell's peak holds no logits whole along
+  the vocab.
+- ``sharding_of`` inverts ``NamedSharding.placements``."""
 import json
 
 import numpy as np
@@ -31,7 +36,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, hlo_analysis
 from repro_torch.models import lm_loss, lm_specs
-from repro_torch.sharding.api import spec_shapes, tree_leaves
+from repro_torch.models.lm import padded_vocab
+from repro_torch.sharding.api import NamedSharding, P, distribute, \
+    sharding_of, spec_shapes, tree_leaves
 
 SMOKE_TRAIN = ShapeConfig("train_4k", "train", 32, 8)
 # the reference's src/repro/launch/dryrun.py:44 (importing that module
@@ -197,3 +204,75 @@ def test_main_writes_records_errors_and_skips(tmp_path, monkeypatch):
                       .read_text())
     assert "skipped" in skip
     assert not dist.is_initialized()
+
+
+def test_recorder_keeps_what_is_live_at_the_peak():
+    rec = hlo_analysis.StepRecorder()
+    with rec:
+        a = torch.zeros(256, device="meta")     # 1 KiB
+        b = a * 2                               # 1 KiB: the peak, 2 KiB
+        del a
+        c = b[:128] + 1                         # 0.5 KiB, after a's free
+    assert rec.peak_bytes == 2048 and rec.live_bytes == 1536
+    at_peak = rec.peak_allocations
+    assert [(e["shape"], e["bytes"], e["count"]) for e in at_peak] == [
+        ([256], 1024, 1), ([256], 1024, 1)]
+    assert "aten.mul.Tensor" in {e["op"] for e in at_peak}
+    assert c.shape == (128,)
+
+
+def test_collective_output_is_live_at_the_peak(world8):
+    x = DTensor.from_local(torch.empty(2, 64, device="meta"), world8,
+                           [Replicate(), Shard(0)], run_check=False,
+                           shape=torch.Size((8, 64)), stride=(64, 1))
+    rec = hlo_analysis.StepRecorder()
+    with rec:
+        y = x.redistribute(world8, [Replicate(), Replicate()])
+    assert y.to_local().shape == (8, 64)
+    assert rec.peak_bytes == 8 * 64 * 4         # counted once, not per wait
+    assert rec.peak_allocations[0]["op"].startswith("_c10d_functional")
+
+
+def test_sharded_train_cell_holds_no_whole_vocab_logits(world8):
+    """The loss of logits split along the vocab reduces (B, S) partial
+    results: no rank holds a row of logits whole along the vocab."""
+    cfg = get_smoke_config("smollm-135m")
+    res = dryrun.analyse_cell("smollm-135m", "train_4k", multi_pod=False,
+                              mesh=world8, config=cfg, shape=SMOKE_TRAIN)
+    at_peak = res["memory"]["temp_at_peak"]
+    assert at_peak and sum(e["bytes"] for e in at_peak) <= \
+        res["memory"]["temp_bytes"]
+    assert all(e["shape"][-1:] != [padded_vocab(cfg)] for e in at_peak)
+    assert any(e["shape"][-1:] == [padded_vocab(cfg) // 4] for e in at_peak)
+
+
+@pytest.mark.parametrize("lever", ["decode_carry", "seq_shard", "attn_remat",
+                                   "chunk_remat"])
+def test_levers_the_port_lacks_are_refused(tmp_path, lever):
+    with pytest.raises(ValueError, match=lever):
+        dryrun.lower_cell("smollm-135m", "train_4k", None, opts=(lever,))
+    out = tmp_path / "dry"
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
+                     "--opt", lever, "--out", str(out)])
+    assert not out.exists()
+
+
+def test_port_levers_apply(world8):
+    cfg = get_smoke_config("smollm-135m")
+    shape = ShapeConfig("decode_32k", "decode", 32, 8)
+    base, int8 = (dryrun.analyse_cell("smollm-135m", "decode_32k",
+                                      multi_pod=False, mesh=world8,
+                                      config=cfg, shape=shape, opts=o)
+                  for o in ((), ("kv_int8",)))
+    assert int8["memory"]["argument_bytes"] < base["memory"]["argument_bytes"]
+
+
+@pytest.mark.parametrize("spec", [P(), P("data"), P(None, "model"),
+                                  P("model", "data"), P(("data", "model"))])
+def test_sharding_of_inverts_named_sharding(world8, spec):
+    want = NamedSharding(world8, spec)
+    x = distribute(torch.empty(8, 16, device="meta"), want)
+    assert sharding_of(x).placements == want.placements
+    assert sharding_of(x).mesh is world8
+    assert sharding_of(x.to_local()) is None
