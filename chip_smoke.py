@@ -164,14 +164,19 @@ Phases, each printing one JSON line:
    mesh (``launch.train.shard_training``), DTensor's dispatch cost; ms a
    step for each; (b) ``python -m repro_torch.launch.dryrun`` of
    smollm-135m ``train_4k`` on 16 x 16 and 2 x 16 x 16 and ``decode_32k``
-   on 16 x 16, each in a subprocess started once (a) has ended (so
+   on 16 x 16, and of xlstm-125m ``prefill_32k`` on 16 x 16 (its sLSTM
+   recorded one step deep and counted 32,768 times), each in a
+   subprocess started once (a) has ended (so
    that (a)'s host-bound steps have the host to themselves), over a
    fake world (no device touched): peak bytes a device against 80 GB
    and the largest allocations live at that peak, FLOPs, collective
    bytes by kind, roofline terms, seconds; (c) with more
    than one card, 2 NCCL ranks (``torch.distributed.run``, this script's
    ``--mesh-worker``) on a ``data=2`` mesh held to the one-card step
-   (``mesh_worker``); on one card a skip line;
+   (``mesh_worker``), a ring prefill of gemma3-12b's local layer at full
+   width into a cache split along its slots over ``model=2`` held to
+   one card, and ``TokenPipeline(shardings=)`` batches held to the
+   unsharded pipeline's; on one card a skip line;
 9. flash — the CUDA ``flash_attention`` through its entry points, with
    the launch counter at 0, on (a) layer 0's q, k, v of that full-width
    smollm at 4 x 2048 (projected and roped as ``attend_full`` does,
@@ -294,7 +299,12 @@ TRAIN_FAMILY_SHAPE, TRAIN_UPDATE_TOL = (1, 64), 1e-6
 # MESH_TOL, first moments through a float64 step, as the train phase)
 MESH_STEPS, MESH_SHAPE, MESH_TOL = 3, (8, 256), 1e-5
 MESH_DRYRUN = ((LM_ARCH, "train_4k", "single"), (LM_ARCH, "train_4k", "multi"),
-               (LM_ARCH, "decode_32k", "single"))
+               (LM_ARCH, "decode_32k", "single"),
+               ("xlstm-125m", "prefill_32k", "single"))
+# (c) also: gemma3-12b's local layer 0 at full width prefilled with
+# MESH_RING_PROMPT tokens (past its 1024 window) into a cache split along
+# its slots, and TokenPipeline(shardings=) batches of MESH_SHAPE
+MESH_RING_B, MESH_RING_PROMPT = 2, 1536
 MESH_DRYRUN_TIMEOUT = 600
 FLASH_A = (4, 2048)             # smollm layer 0: batch, sequence
 FLASH_B = (1, 4096)             # gemma3-12b local layer: batch, sequence
@@ -3032,9 +3042,15 @@ def mesh_ranks(failures) -> dict:
         return {"part": "c_two_ranks", "ran": "failed",
                 "returncode": proc.returncode}
     res = json.loads(got[-1][len("RESULT "):])
+    ring, tp = res["ring_prefill"], res["token_pipeline"]
     if not (res["loss_diff"] <= MESH_TOL
             and res["m_vs_f64_worst_ratio"] <= 1.0
-            and res["params_vs_own_update"] <= TRAIN_UPDATE_TOL):
+            and res["params_vs_own_update"] <= TRAIN_UPDATE_TOL
+            and ring["written_mismatches"] == 0 and ring["all_written"]
+            and ring["pos_equal"] and ring["kv_rel"] <= 4 * 2.0 ** -7
+            and ring["k_placements"] == ["R", "S(2)"]
+            and tp["equal"] and tp["labels_plain"]
+            and tp["tokens_placements"] == [["S(0)", "R"]]):
         failures.append(f"c: {res}")
     return {"part": "c_two_ranks", "ran": "ran", **res}
 
@@ -3109,11 +3125,108 @@ def mesh_worker(device=None) -> int:
            "m_rel_diff": rel(tree_leaves(o1["m"]), whole(o2["m"])),
            "m_vs_f64_worst_ratio": max(ratios),
            "params_vs_own_update": rel(own, whole(p2)),
-           "max_rel_diff": rel(tree_leaves(p1), whole(p2))}
+           "max_rel_diff": rel(tree_leaves(p1), whole(p2)),
+           "ring_prefill": mesh_ring_prefill(dev),
+           "token_pipeline": mesh_token_pipeline(cfg, mesh, dev)}
     if rank == 0:
         print("RESULT " + json.dumps(res), flush=True)
     dist.destroy_process_group()
     return 0
+
+
+def mesh_ring_prefill(dev) -> dict:
+    """(c) gemma3-12b's local layer 0 at full width (float32, window
+    1024): k/v of MESH_RING_PROMPT tokens projected over heads split on
+    "model" of a ``(1, N)`` mesh, prefilled into a ring placed by
+    ``cache_shardings`` (its slots split over "model"), held to the plain
+    ring on this rank's card: each rank's slots written where the plain
+    ring's are, ``pos`` exact, k/v within the bf16 bound (4 x 2**-7 of
+    scale) of a sum in another order."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.configs.base import LOCAL_ATTN
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_caches
+    from repro_torch.models.attention import attend_full, attention_specs, \
+        prefill_into_cache
+    from repro_torch.models.lm import _rep
+    from repro_torch.sharding.api import NamedSharding, P, device_put, \
+        distribute, materialize, spec_shardings, use_mesh
+    from repro_torch.sharding.caches import cache_shardings
+    cfg = scaled(get_config("gemma3-12b"), dtype="float32", num_layers=1,
+                 block_pattern=(LOCAL_ATTN,))
+    win, B, S = cfg.sliding_window, MESH_RING_B, MESH_RING_PROMPT
+    mesh = make_host_mesh(1, dist.get_world_size(), device=dev)
+    specs = attention_specs(cfg)
+    params = materialize(specs, torch.Generator().manual_seed(7), dev)
+    h = torch.randn((B, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(8)).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    plain = init_caches(cfg, B, 2 * S, device=dev)
+    _, (k1, v1) = attend_full(params, cfg, h, pos, causal=True, window=win)
+    prefill_into_cache(_rep(plain["blocks"][0], 0), k1, v1, pos, window=win)
+    with use_mesh(mesh):
+        placed = device_put(init_caches(cfg, B, 2 * S, device=dev),
+                            cache_shardings(plain, mesh, B))
+        _, (k2, v2) = attend_full(
+            device_put(params, spec_shardings(specs, mesh)), cfg,
+            distribute(h, NamedSharding(mesh, P())), pos, causal=True,
+            window=win)
+        prefill_into_cache(_rep(placed["blocks"][0], 0), k2, v2, pos,
+                           window=win)
+    bad, rel = 0, 0.0
+    for name in ("k", "v"):
+        dt = placed["blocks"][0][name]
+        shape, offset = compute_local_shape_and_global_offset(
+            dt.shape, dt.device_mesh, dt.placements)
+        want = plain["blocks"][0][name][tuple(
+            slice(o, o + n) for o, n in zip(offset, shape))].float()
+        got = dt.to_local().float()
+        bad += int(not torch.equal(got.abs().sum(dim=(0, 1, 3, 4)) > 0,
+                                   want.abs().sum(dim=(0, 1, 3, 4)) > 0))
+        rel = max(rel, float((got - want).abs().max()
+                             / max(float(want.abs().max()), 1e-30)))
+    t = torch.tensor([bad, rel], dtype=torch.float64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    got_pos = placed["blocks"][0]["pos"].full_tensor()
+    k_whole = placed["blocks"][0]["k"].full_tensor()[0]
+    return {"mesh": list(mesh.shape), "window": win, "prompt": S,
+            "k_placements": [str(p) for p in
+                             placed["blocks"][0]["k"].placements],
+            "written_mismatches": int(t[0]), "kv_rel": float(t[1]),
+            "all_written": bool((k_whole.abs().sum(dim=(0, 2, 3)) > 0).all()),
+            "pos_equal": bool(torch.equal(got_pos,
+                                          plain["blocks"][0]["pos"]))}
+
+
+def mesh_token_pipeline(cfg, mesh, dev) -> dict:
+    """(c) ``TokenPipeline(shardings={"tokens": ("data", None)})`` on the
+    ``(N, 1)`` mesh against the unsharded pipeline of the same seed: 3
+    batches of MESH_SHAPE, tokens split along the batch, labels plain."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.sharding.api import NamedSharding, P
+    B, S = MESH_SHAPE
+    plain = TokenPipeline(cfg.vocab_size, B, S, seed=11, device=dev)
+    placed = TokenPipeline(cfg.vocab_size, B, S, seed=11, device=dev,
+                           shardings={"tokens": NamedSharding(
+                               mesh, P("data", None))})
+    try:
+        pairs = [(next(plain), next(placed)) for _ in range(3)]
+    finally:
+        plain.close()
+        placed.close()
+    return {"batches": len(pairs),
+            "equal": all(torch.equal(a["tokens"], b["tokens"].full_tensor())
+                         and torch.equal(a["labels"], b["labels"])
+                         for a, b in pairs),
+            "tokens_placements": [list(p) for p in sorted({tuple(
+                str(x) for x in b["tokens"].placements) for _, b in pairs})],
+            "labels_plain": all(type(b["labels"]) is torch.Tensor
+                                for _, b in pairs)}
 
 
 def flash_phase(dev, params) -> dict:

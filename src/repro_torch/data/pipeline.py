@@ -13,7 +13,8 @@ record streams for the Load Shedder. Every entry point takes ``device``
 LM path: a seeded synthetic token stream (``BigramStream``, a Zipfian
 bigram chain with learnable structure, the reference's samples for the
 same seeds) and ``TokenPipeline``, its double-buffered prefetching
-iterator with a straggler guard, placing each batch on ``device``.
+iterator with a straggler guard, placing each batch on ``device`` (and,
+given ``shardings``, over a mesh).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.data.synthetic import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.hsv_features.ops import IngestState
+from repro_torch.sharding.api import distribute
 
 
 # ---------------------------------------------------------------------------
@@ -239,20 +241,20 @@ class TokenPipeline:
     ``skip_after``: if a producer step exceeds the timeout, the batch is
     dropped and a fresh one produced (host-side straggler mitigation —
     the analogue of the shedder's bounded queue for the training path).
-    ``shardings`` must be ``None``: placement over a mesh is ROADMAP
-    Queue 1 item 10.7."""
+    ``shardings``, if given, maps a key to the ``NamedSharding`` its
+    leaf is distributed by (a DTensor; every rank draws the same batch
+    from the same seed and keeps its own slice), as the reference's
+    ``jax.device_put(v, shardings.get(k))``; a key it lacks, or maps to
+    ``None``, stays a plain tensor."""
 
     def __init__(self, vocab: int, batch: int, seq: int, seed: int = 0,
                  prefetch: int = 2, shardings=None, skip_after: float = 30.0,
                  *, device: DeviceLike = None):
-        if shardings is not None:
-            raise NotImplementedError(
-                "TokenPipeline(shardings=...): mesh placement is ROADMAP "
-                "Queue 1 item 10.7; pass device= instead")
         self.device = resolve_device(device)
         self.stream = BigramStream(vocab, seed)
         self.rng = np.random.default_rng(seed + 1)
         self.batch, self.seq = batch, seq
+        self.shardings = shardings
         self.skip_after = skip_after
         self._queue: _q.Queue = _q.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -261,9 +263,14 @@ class TokenPipeline:
 
     def _make(self):
         toks = self.stream.sample(self.rng, self.batch, self.seq)
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in (("tokens", toks[:, :-1]),
-                             ("labels", toks[:, 1:]))}
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in (("tokens", toks[:, :-1]),
+                              ("labels", toks[:, 1:]))}
+        if self.shardings is not None:
+            batch = {k: v if self.shardings.get(k) is None
+                     else distribute(v, self.shardings[k])
+                     for k, v in batch.items()}
+        return batch
 
     def _producer(self):
         while not self._stop.is_set():

@@ -216,7 +216,10 @@ def analyse_cell(arch: str, shape_name: str, *, multi_pod: bool,
     needs ``fake_world(256 or 512)``) and return the reference's record.
     ``cost_mode`` is the reference's argument: one trace of the port's
     Python loop over layers counts every layer, so ``cost_source`` is
-    ``"trace"``. ``want_hlo=False`` leaves out the collectives.
+    ``"trace"``; a time loop (the sLSTM's) is recorded one step deep and
+    counted L times (``StepRecorder.repeat``; ``loops_recorded_once``
+    counts them), where the reference's cost analysis counts its scan's
+    body once. ``want_hlo=False`` leaves out the collectives.
     ``config`` and ``shape`` as in ``lower_cell``."""
     mesh = mesh if mesh is not None else make_production_mesh(
         multi_pod=multi_pod)
@@ -263,7 +266,8 @@ def analyse_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "cost": {"flops_per_device": flops,
                  "bytes_per_device": bytes_acc,
                  "bytes_counted": "unfused",
-                 "cost_source": "trace"},
+                 "cost_source": "trace",
+                 "loops_recorded_once": compiled.recorder.repeated},
         "collectives": coll,
         "model_flops_global": model_flops,
         "model_flops_per_device": model_flops / chips,

@@ -20,6 +20,7 @@ lower bound.
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import weakref
 from typing import Dict, Iterable, Optional, Tuple
@@ -111,7 +112,15 @@ class StepRecorder(TorchDispatchMode):
 
     ``device_type``, if given, is the program's device: ops on tensors
     of another (DTensor's own bookkeeping of shard sizes runs on small
-    CPU tensors) are not recorded."""
+    CPU tensors) are not recorded.
+
+    ``repeat(n)``: a context under which every op's FLOPs, bytes, op
+    count and collective records count ``n`` times, for a loop whose
+    iterations issue the same ops on the same shapes and that runs one
+    of them (``models.ssm``'s time loop does so under a recorder, found
+    as the current dispatch mode). Allocations and frees are followed
+    once, so the peak is that of one iteration. ``repeated`` counts the
+    loops recorded so."""
 
     def __init__(self, device_type: Optional[str] = None):
         super().__init__()
@@ -122,6 +131,8 @@ class StepRecorder(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.ops = 0
+        self.repeated = 0
+        self._times = 1
         self._live = {}          # (op, shape, dtype) -> [count, bytes]
         self._at_peak = []
         self._peak_unread = False
@@ -158,6 +169,17 @@ class StepRecorder(TorchDispatchMode):
             self.peak_bytes = self.live_bytes
             self._peak_unread = True
 
+    @contextlib.contextmanager
+    def repeat(self, n: int):
+        """Count what runs inside ``n`` times (see the class)."""
+        outer = self._times
+        self._times = outer * int(n)
+        self.repeated += 1
+        try:
+            yield self
+        finally:
+            self._times = outer
+
     @property
     def peak_allocations(self) -> list:
         """``[{"op", "shape", "dtype", "count", "bytes"}, ...]`` live at
@@ -183,10 +205,11 @@ class StepRecorder(TorchDispatchMode):
         if self.device_type is not None and any(
                 t.device.type != self.device_type for t in outs):
             return out
-        self.ops += 1
+        self.ops += self._times
         kind = collective_kind(func)
         if kind is not None:
-            self.collectives.append((kind, sum(map(_nbytes, outs))))
+            self.collectives += [(kind, sum(map(_nbytes, outs)))] * \
+                self._times
             self._allocated(func, outs)
             return out
         if getattr(func, "namespace", None) in _FUNCTIONAL_NAMESPACES:
@@ -198,10 +221,12 @@ class StepRecorder(TorchDispatchMode):
         from torch.utils.flop_counter import flop_registry
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
-            self.flops += int(count(*args, **kwargs, out_val=out))
+            self.flops += int(count(*args, **kwargs, out_val=out)) * \
+                self._times
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
-        self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        self.bytes += (sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))) * \
+            self._times
         if not aliases:                # fresh outputs: live until freed
             self._allocated(func, outs)
         return out

@@ -35,7 +35,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import apply_rope
 from repro_torch.sharding.api import ParamSpec, constrain, \
     contiguous_grad, distribute_like, gather_dim, is_dtensor, reshape, \
-    shards_dim, write_slice
+    write_index
 
 Q_CHUNK = 1024  # q-chunk length above which the queries go in blocks
 
@@ -233,26 +233,14 @@ def init_kv_cache(cfg, batch, max_seq, *, window: Optional[int] = None,
 
 
 def _put(cache, name, slots, val):
-    """``cache[name][:, slots] = val``. A fresh plain cache meeting
-    DTensor keys becomes a DTensor placed like them; a DTensor cache
-    sharded along its slots is written shard by shard
-    (``sharding.api.write_slice``)."""
+    """``cache[name][:, slots] = val``, ``slots`` a slice or an index
+    tensor of unique slots. A fresh plain cache meeting DTensor keys
+    becomes a DTensor placed like them; a DTensor cache, sharded along
+    its slots or not, is written shard by shard, each rank the slots it
+    holds (``sharding.api.write_index``)."""
     if is_dtensor(val) and not is_dtensor(cache[name]):
         cache[name] = distribute_like(cache[name], val)
-    dst = cache[name]
-    if shards_dim(dst, 1):
-        if not isinstance(slots, slice):
-            raise NotImplementedError(
-                "a ring write into a cache sharded along its slots")
-        write_slice(dst, 1, slots.start, val)
-    elif is_dtensor(dst) and not isinstance(slots, slice):
-        # slots whole on every rank: each writes its own shard (DTensor
-        # has no rule for index_put_ in some torch versions)
-        src = val.redistribute(dst.device_mesh, dst.placements) \
-            if is_dtensor(val) else distribute_like(val, dst)
-        dst.to_local()[:, slots] = src.to_local().to(dst.dtype)
-    else:
-        dst[:, slots] = val.to(dst.dtype)
+    write_index(cache[name], 1, slots, val)
 
 
 def _write(cache, slots, k, v):
@@ -283,7 +271,7 @@ def prefill_into_cache(cache, k, v, positions, *, window: Optional[int]):
     p_tail = positions[-take:].to(torch.int32)
     slots = (p_tail % W).long()
     _write(cache, slots, k[:, -take:], v[:, -take:])
-    cache["pos"][slots] = p_tail
+    write_index(cache["pos"], 0, slots, p_tail)
     return cache
 
 

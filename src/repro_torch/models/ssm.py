@@ -7,7 +7,8 @@ within a chunk of ``Q = min(cfg.ssm_chunk, L)`` tokens, and a Python loop
 across the ``L / Q`` chunks carrying only the state. One token
 (``*_step``) uses the exact recurrences. The sLSTM has no chunked form:
 ``slstm_train`` is a loop over time, its cell in float32 whatever
-``cfg.dtype`` is.
+``cfg.dtype`` is; the dry run records one of its steps and counts it L
+times (``_time_loop``).
 
 As in the reference: the mLSTM chunked form has no stabilizer (it returns
 ``m = 0``) while its step is stabilized; the denominators are
@@ -28,6 +29,7 @@ a new state dict; the block layer copies it into the caller's cache.
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.models.common import rmsnorm, silu
 from repro_torch.sharding.api import ParamSpec
@@ -389,16 +391,49 @@ def _slstm_cell(params, x_t, st):
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
+def _time_loop(step, L: int, shape, dtype, device, graph: bool
+               ) -> torch.Tensor:
+    """``torch.stack([step(t) for t in range(L)], dim=1)`` of shape
+    ``shape`` for a recurrence whose steps issue the same ops on the same
+    shapes. Without an autograd ``graph`` each step's output is copied
+    into one preallocated ``dtype`` output as it comes, so the peak holds
+    the output and one step. The dry run's ``StepRecorder`` (the current
+    dispatch mode, found by duck typing: ``models`` does not import
+    ``launch``) offers ``repeat``: over meta tensors, which carry no
+    values, step 0 alone runs under ``mode.repeat(L)``. FLOPs, bytes, op
+    count and collective bytes then equal the full loop's exactly; the
+    peak equals it to within one carry state (4 x ``(B, d)`` float32 in
+    the sLSTM). With a ``graph`` the steps' outputs are stacked: a
+    ``copy_`` into one output would copy its whole gradient at every
+    step of the backward."""
+    if graph:
+        return torch.stack([step(t) for t in range(L)], dim=1)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    repeat = getattr(_get_current_dispatch_mode(), "repeat", None)
+    if repeat is not None and device.type == "meta" and L > 0:
+        with repeat(L):
+            out.select(1, 0).copy_(step(0))
+        return out
+    for t in range(L):
+        out.select(1, t).copy_(step(t))
+    return out
+
+
 def slstm_train(params, cfg, x, return_state=False):
-    """Sequential loop over time. x: (B,L,d) -> (B,L,d)."""
+    """Sequential loop over time (``_time_loop``). x: (B,L,d) ->
+    (B,L,d)."""
     B, L, d = x.shape
     xf = _f32(x)
     st = slstm_init_state(cfg, B, x.device)
-    hs = []
-    for t in range(L):
+
+    def step(t):
+        nonlocal st
         st = _slstm_cell(params, xf[:, t], st)
-        hs.append(st["h"])
-    out = torch.stack(hs, dim=1).to(x.dtype)
+        return st["h"]
+    graph = torch.is_grad_enabled() and (xf.requires_grad or any(
+        w.requires_grad for w in params.values()))
+    out = _time_loop(step, L, (B, L, d), xf.dtype, x.device,
+                     graph).to(x.dtype)
     if return_state:
         return out, st
     return out

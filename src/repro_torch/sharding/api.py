@@ -479,28 +479,66 @@ def batch_local(fn, params, *args):
     return tree_map(wrap, out, torch.is_tensor)
 
 
-def write_slice(dst: torch.Tensor, dim: int, start: int,
-                src: torch.Tensor) -> None:
-    """``dst.narrow(dim, start, src.shape[dim]).copy_(src)``, in place, on
-    a DTensor ``dst`` sharded along ``dim``: DTensor itself would write
-    into a gathered copy and drop it; here each rank writes the rows of
-    ``src`` that fall in its own shard."""
+def _shard_window(dst: torch.Tensor, dim: int, src: torch.Tensor):
+    """``(dst's local tensor, src's local tensor, lo, hi)`` for a write
+    into the DTensor ``dst`` along ``dim``: ``src`` placed as ``dst`` is
+    but whole along ``dim``, and ``[lo, hi)`` the slots of ``dim`` that
+    this rank holds."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    n = src.shape[dim]
     mesh = dst.device_mesh
     want = [Replicate() if p == Shard(dim) else p for p in dst.placements]
     src = src.redistribute(mesh, want) if is_dtensor(src) else \
         _place(src, mesh, want)
-    src_local = src.to_local()
     shape, offset = compute_local_shape_and_global_offset(
         dst.shape, mesh, dst.placements)
-    lo, hi = offset[dim], offset[dim] + shape[dim]
+    return (dst.to_local(), src.to_local(), offset[dim],
+            offset[dim] + shape[dim])
+
+
+def write_slice(dst: torch.Tensor, dim: int, start: int,
+                src: torch.Tensor) -> None:
+    """``dst.narrow(dim, start, src.shape[dim]).copy_(src)``, in place, on
+    a DTensor ``dst``: DTensor itself would write a slice of a sharded
+    dim into a gathered copy and drop it; here each rank writes the rows
+    of ``src`` that fall in its own shard."""
+    n = src.shape[dim]
+    dst_local, src_local, lo, hi = _shard_window(dst, dim, src)
     a, b = max(start, lo), min(start + n, hi)
     if a < b:
-        dst.to_local().narrow(dim, a - lo, b - a).copy_(
+        dst_local.narrow(dim, a - lo, b - a).copy_(
             src_local.narrow(dim, a - start, b - a).to(dst.dtype))
+
+
+def write_index(dst: torch.Tensor, dim: int, idx, src: torch.Tensor
+                ) -> None:
+    """``dst[(:,) * dim + (idx,)] = src``, in place, ``idx`` a slice of
+    step 1 or a plain 1-D tensor of unique indices (which of two writes
+    to one index wins is unspecified; a split ``dim`` asserts that there
+    are none). A plain ``dst`` takes the plain
+    ``__setitem__``. On a DTensor ``dst`` each rank writes what falls in
+    its own shard of ``dim`` (DTensor has no rule for ``index_put_`` in
+    some torch versions, and writes a sharded dim's slice into a gathered
+    copy): a slice through ``write_slice``; the entries of ``idx`` in
+    ``[lo, hi)`` at ``idx - lo``, from the rows of ``src`` at the same
+    places. ``src`` is first placed as ``dst`` is, whole along ``dim``."""
+    if not is_dtensor(dst):
+        dst[(slice(None),) * dim + (idx,)] = src.to(dst.dtype)
+        return
+    if isinstance(idx, slice):
+        assert idx.step in (None, 1), idx
+        write_slice(dst, dim, idx.start or 0, src)
+        return
+    lead = (slice(None),) * dim
+    dst_local, src_local, lo, hi = _shard_window(dst, dim, src)
+    if not shards_dim(dst, dim):         # every rank holds every slot
+        dst_local[lead + (idx,)] = src_local.to(dst.dtype)
+        return
+    assert idx.unique().numel() == idx.numel(), "repeated indices"
+    mine = (idx >= lo) & (idx < hi)
+    dst_local[lead + (idx[mine] - lo,)] = \
+        src_local[lead + (mine,)].to(dst.dtype)
 
 
 def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -626,4 +664,4 @@ __all__ = ["AbstractMesh", "DEFAULT_RULES", "DTYPES", "NamedSharding", "P",
            "spec_shardings",
            "tree_flatten_with_path", "tree_leaves", "tree_map",
            "tree_map_specs", "tree_unflatten", "use_mesh", "whole_local",
-           "write_slice"]
+           "write_index", "write_slice"]

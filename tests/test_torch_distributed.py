@@ -8,8 +8,9 @@ that a sharded float32 train step matches the one-device step,
 that ``launch.train.build(data_axis=2, model_axis=2)`` trains on the mesh,
 alone and under the fault-tolerant training loop with an injected fault,
 that MoE, sliding-window and recurrent losses and decode steps over
-slot-sharded caches match the one-device path, and saves a sharded
-checkpoint. A second world of 2
+slot-sharded caches match the one-device path, as does a ring prefill
+into such caches, that ``TokenPipeline(shardings=)`` splits its batches
+over the mesh, and saves a sharded checkpoint. A second world of 2
 ranks restores it onto ``(1, 2)`` (elastic resharding), and restores a
 file the reference wrote. Every rank runs in a subprocess with a time
 limit of its own: a hung rank fails its test."""
@@ -198,6 +199,75 @@ for arch in DECODE_ARCHS:
         "written": [bool(k_whole[:, :, i].abs().sum() > 0) for i in range(min(12, W))],
         "empty": [bool(k_whole[:, :, i].abs().sum() == 0) for i in range(12, W)]}
 
+# a ring prefill into caches sharded along their slots (cache_seq ->
+# model): gemma3's local layer 0 (window 16), k/v projected over heads
+# split on "model", a prompt longer than the window (wrapping) and one
+# shorter (half the slots empty); each rank's own slots against the
+# plain ring's slice at its offset
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from repro_torch.models.attention import attend_full, prefill_into_cache
+from repro_torch.models.lm import _block_params, _rep
+cfg_r = scaled(get_smoke_config("gemma3-12b"), dtype="float32")
+sr = lm_specs(cfg_r)
+pr = materialize(sr, torch.Generator().manual_seed(6), "cpu")
+kind_r, win = cfg_r.block_pattern[0], cfg_r.sliding_window
+with use_mesh(mesh):
+    prs = device_put(pr, spec_shardings(sr, mesh))
+for S_r in (24, 10):
+    h = torch.randn((4, S_r, cfg_r.d_model), generator=torch.Generator().manual_seed(S_r))
+    pos_r = torch.arange(S_r, dtype=torch.int32)
+    plain = init_caches(cfg_r, 4, 32, device="cpu")
+    _, (k1, v1) = attend_full(_block_params(pr, kind_r, 0, 0)["attn"], cfg_r, h, pos_r,
+                              causal=True, window=win)
+    prefill_into_cache(_rep(plain["blocks"][0], 0), k1, v1, pos_r, window=win)
+    with use_mesh(mesh):
+        placed = device_put(init_caches(cfg_r, 4, 32, device="cpu"),
+                            cache_shardings(plain, mesh, 4))
+        hs = distribute(h, NamedSharding(mesh, P("data", None, None)))
+        _, (k2, v2) = attend_full(_block_params(prs, kind_r, 0, 0)["attn"], cfg_r, hs, pos_r,
+                                  causal=True, window=win)
+        prefill_into_cache(_rep(placed["blocks"][0], 0), k2, v2, pos_r, window=win)
+    line = {"window": win, "k_placements": [str(p) for p in placed["blocks"][0]["k"].placements]}
+    bad, rel = 0, 0.0
+    for name in ("k", "v"):
+        dt = placed["blocks"][0][name]
+        shape, offset = compute_local_shape_and_global_offset(dt.shape, dt.device_mesh,
+                                                              dt.placements)
+        want = plain["blocks"][0][name][tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        got = dt.to_local()
+        wrote = lambda t: (t.float().abs().sum(dim=(0, 1, 3, 4)) > 0).tolist()  # a slot
+        bad += int(wrote(got) != wrote(want))
+        rel = max(rel, float((got.float() - want.float()).abs().max()
+                             / max(float(want.float().abs().max()), 1e-30)))
+    t = torch.tensor([bad, rel], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    kw = whole(placed["blocks"][0]["k"])[0]
+    line.update(written_mismatches=int(t[0]), kv_rel=float(t[1]),
+                written=[bool(kw[:, i].abs().sum() > 0) for i in range(kw.shape[1])],
+                pos=whole(placed["blocks"][0]["pos"])[0].tolist(),
+                pos_plain=plain["blocks"][0]["pos"][0].tolist())
+    results[f"ring_prefill_{S_r}"] = line
+
+# TokenPipeline(shardings=): tokens split along the batch over "data",
+# labels (no key) a plain tensor; the batches equal the unsharded ones
+from repro_torch.data.pipeline import TokenPipeline
+tp_plain = TokenPipeline(64, 4, 8, seed=9, device="cpu")
+tp_mesh = TokenPipeline(64, 4, 8, seed=9, device="cpu",
+                        shardings={"tokens": NamedSharding(mesh, P("data", None))})
+try:
+    seen = []
+    for _ in range(3):
+        a, b = next(tp_plain), next(tp_mesh)
+        seen.append({"tokens_equal": torch.equal(a["tokens"], b["tokens"].full_tensor()),
+                     "labels_equal": torch.equal(a["labels"], b["labels"]),
+                     "tokens_placements": [str(p) for p in b["tokens"].placements],
+                     "tokens_local": list(b["tokens"].to_local().shape),
+                     "labels_plain": type(b["labels"]) is torch.Tensor})
+finally:
+    tp_plain.close()
+    tp_mesh.close()
+results["token_pipeline"] = seen
+
 # a sharded checkpoint for the elastic restore (qwen2.5's smoke config)
 cfg_q = get_smoke_config("qwen2.5-32b")
 sq = lm_specs(cfg_q)
@@ -358,6 +428,34 @@ def test_decode_over_slot_sharded_caches_matches_one_device(worlds, arch):
     # write leaves a zero slot (checked exactly above).
     assert got["cache_rel"] <= 4 * 2.0 ** -7
     assert got["logits_rel"] <= 4e-2
+
+
+@pytest.mark.parametrize("prompt", [24, 10])
+def test_ring_prefill_into_slot_sharded_caches_matches_one_device(worlds, prompt):
+    got = worlds[0][f"ring_prefill_{prompt}"]
+    W = got["window"]
+    assert prompt > W if prompt == 24 else prompt < W
+    assert got["k_placements"] == ["S(1)", "S(2)"]
+    # each rank's own slots written exactly where the plain ring's are,
+    # and the whole ring: every slot past a wrap, the first `prompt` else
+    assert got["written_mismatches"] == 0
+    assert got["written"] == [i < prompt for i in range(W)]
+    want_pos = [-1] * W
+    for p in range(max(0, prompt - W), prompt):
+        want_pos[p % W] = p
+    assert got["pos"] == got["pos_plain"] == want_pos
+    # bf16 caches: the bound of the slot-sharded decode test above
+    assert got["kv_rel"] <= 4 * 2.0 ** -7
+
+
+def test_token_pipeline_places_batches_over_the_mesh(worlds):
+    seen = worlds[0]["token_pipeline"]
+    assert len(seen) == 3
+    for b in seen:
+        assert b["tokens_equal"] and b["labels_equal"]
+        assert b["tokens_placements"] == ["S(0)", "R"]
+        assert b["tokens_local"] == [2, 8]
+        assert b["labels_plain"]
 
 
 def test_elastic_checkpoint_reshard(worlds):

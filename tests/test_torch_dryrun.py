@@ -16,7 +16,10 @@ local program of rank 0.
 - ``StepRecorder`` keeps what is live at the peak, collectives' outputs
   included; a sharded train cell's peak holds no logits whole along
   the vocab.
-- ``sharding_of`` inverts ``NamedSharding.placements``."""
+- ``sharding_of`` inverts ``NamedSharding.placements``.
+- ``StepRecorder.repeat``: the sLSTM's time loop recorded one step deep
+  counts the full loop's FLOPs, bytes, ops and collectives exactly, with
+  a peak within one carry state, alone and in a smoke prefill cell."""
 import json
 
 import numpy as np
@@ -276,3 +279,79 @@ def test_sharding_of_inverts_named_sharding(world8, spec):
     assert sharding_of(x).placements == want.placements
     assert sharding_of(x).mesh is world8
     assert sharding_of(x.to_local()) is None
+
+
+class _FullLoop(hlo_analysis.StepRecorder):
+    """A recorder that offers no ``repeat``: time loops run every step."""
+    repeat = None
+
+
+def _slstm_recorded(recorder_cls, cfg, B, L):
+    from repro_torch.models import ssm
+    params = spec_shapes(ssm.slstm_specs(cfg))
+    x = torch.empty((B, L, cfg.d_model), dtype=torch.bfloat16, device="meta")
+    rec = recorder_cls(device_type="meta")
+    with rec:
+        out, st = ssm.slstm_train(params, cfg, x, return_state=True)
+    assert out.shape == (B, L, cfg.d_model) and out.dtype == torch.bfloat16
+    assert set(st) == {"c", "n", "h", "m"}
+    return rec
+
+
+def test_slstm_loop_recorded_once_counts_the_full_loop():
+    cfg = get_smoke_config("xlstm-125m")
+    B, L = 2, 16
+    full = _slstm_recorded(_FullLoop, cfg, B, L)
+    once = _slstm_recorded(hlo_analysis.StepRecorder, cfg, B, L)
+    assert (full.repeated, once.repeated) == (0, 1)
+    assert (once.flops, once.bytes, once.ops) == \
+        (full.flops, full.bytes, full.ops)
+    assert once.flops > 0
+    assert hlo_analysis.collective_bytes(once.collectives) == \
+        hlo_analysis.collective_bytes(full.collectives)
+    carry = 4 * B * cfg.d_model * 4         # c, n, h, m in float32
+    assert abs(once.peak_bytes - full.peak_bytes) <= carry
+    # the output is live at the peak, whole
+    assert once.peak_bytes >= B * L * cfg.d_model * 4
+
+
+def test_repeat_counts_collectives_n_times_and_the_peak_once(world8):
+    x = DTensor.from_local(torch.empty(2, 64, device="meta"), world8,
+                           [Replicate(), Shard(0)], run_check=False,
+                           shape=torch.Size((8, 64)), stride=(64, 1))
+    one, three = hlo_analysis.StepRecorder(), hlo_analysis.StepRecorder()
+    with one:
+        x.redistribute(world8, [Replicate(), Replicate()]) * 2
+    with three, three.repeat(3):
+        x.redistribute(world8, [Replicate(), Replicate()]) * 2
+    c1 = hlo_analysis.collective_bytes(one.collectives)
+    c3 = hlo_analysis.collective_bytes(three.collectives)
+    assert c1["count"] > 0 and c3 == {k: 3 * v for k, v in c1.items()}
+    assert (three.flops, three.bytes, three.ops) == \
+        (3 * one.flops, 3 * one.bytes, 3 * one.ops)
+    assert three.peak_bytes == one.peak_bytes > 0
+    assert three.repeated == 1 and three._times == 1
+
+
+def test_xlstm_prefill_cell_traces_the_slstm_one_step_deep(world8,
+                                                            monkeypatch):
+    """The smoke xlstm prefill cell on a ``(2, 4)`` mesh: recorded one
+    sLSTM step deep, its record equals the full loop's but for the peak
+    (within one carry state a sLSTM layer) and the loops it names."""
+    cfg = get_smoke_config("xlstm-125m")
+    shape = ShapeConfig("prefill_32k", "prefill", 48, 4)
+    once = dryrun.analyse_cell("xlstm-125m", "prefill_32k", multi_pod=False,
+                               mesh=world8, config=cfg, shape=shape)
+    monkeypatch.setattr(hlo_analysis.StepRecorder, "repeat", None)
+    full = dryrun.analyse_cell("xlstm-125m", "prefill_32k", multi_pod=False,
+                               mesh=world8, config=cfg, shape=shape)
+    n_slstm = cfg.pattern_repeats
+    assert once["cost"]["loops_recorded_once"] == n_slstm > 0
+    assert full["cost"]["loops_recorded_once"] == 0
+    for key in ("flops_per_device", "bytes_per_device"):
+        assert once["cost"][key] == full["cost"][key] > 0
+    assert once["collectives"] == full["collectives"]
+    assert once["traced_ops"] == full["traced_ops"]
+    carry = 4 * (shape.global_batch // 2) * cfg.d_model * 4
+    assert abs(once["memory"]["temp_bytes"]
+               - full["memory"]["temp_bytes"]) <= carry

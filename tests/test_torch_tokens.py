@@ -68,10 +68,25 @@ def test_token_pipeline_straggler_guard():
     assert all(b["tokens"].shape == (2, 8) for b in batches)
 
 
-def test_token_pipeline_refuses_meshes_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="10.7"):
-        tpipe.TokenPipeline(32, 2, 8, shardings={"tokens": None},
-                            device="cpu")
+def test_token_pipeline_shardings_of_none_keep_plain_tensors():
+    """A key that ``shardings`` maps to ``None``, or lacks, stays a plain
+    tensor, as ``jax.device_put(v, None)`` leaves an array (the mesh
+    placement runs on gloo ranks in ``test_torch_distributed.py``)."""
+    plain = tpipe.TokenPipeline(32, 2, 8, seed=5, device="cpu")
+    placed = tpipe.TokenPipeline(32, 2, 8, seed=5, device="cpu",
+                                 shardings={"tokens": None})
+    try:
+        for _ in range(3):
+            want, got = next(plain), next(placed)
+            for k in ("tokens", "labels"):
+                assert type(got[k]) is torch.Tensor
+                assert torch.equal(got[k], want[k])
+    finally:
+        plain.close()
+        placed.close()
+
+
+def test_token_pipeline_refuses_a_missing_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tpipe.TokenPipeline(32, 2, 8)
