@@ -164,8 +164,12 @@ Phases, each printing one JSON line:
    mesh (``launch.train.shard_training``), DTensor's dispatch cost; ms a
    step for each; (b) ``python -m repro_torch.launch.dryrun`` of
    smollm-135m ``train_4k`` on 16 x 16 and 2 x 16 x 16 and ``decode_32k``
-   on 16 x 16, and of xlstm-125m ``prefill_32k`` on 16 x 16 (its sLSTM
-   recorded one step deep and counted 32,768 times), each in a
+   on 16 x 16, of xlstm-125m ``prefill_32k`` on 16 x 16 (its sLSTM
+   recorded one step deep and counted 32,768 times), of
+   granite-moe-1b-a400m ``train_4k`` on 16 x 16 (no allocation holds the
+   whole MoE dispatch buffer: each rank scatters into its own batch
+   rows) and of internlm2-20b ``train_4k`` on 16 x 16 with ``--opt
+   seq_shard --opt attn_remat`` (the record names both), each in a
    subprocess started once (a) has ended (so
    that (a)'s host-bound steps have the host to themselves), over a
    fake world (no device touched): peak bytes a device against 80 GB
@@ -294,13 +298,18 @@ TRAIN_FAMILIES = ("granite-moe-1b-a400m", "xlstm-125m", "zamba2-2.7b",
                   "whisper-tiny")
 TRAIN_FAMILY_SHAPE, TRAIN_UPDATE_TOL = (1, 64), 1e-6
 # mesh phase: MESH_STEPS launcher steps of MESH_SHAPE on each path; the
-# dry-run cells (arch, shape, --mesh), each a subprocess of at most
-# MESH_DRYRUN_TIMEOUT s; (c) 2 ranks held to one card (loss within
-# MESH_TOL, first moments through a float64 step, as the train phase)
+# dry-run cells (arch, shape, --mesh, --opt levers), each a subprocess of
+# at most MESH_DRYRUN_TIMEOUT s; (c) 2 ranks held to one card (loss
+# within MESH_TOL, first moments through a float64 step, as the train
+# phase)
 MESH_STEPS, MESH_SHAPE, MESH_TOL = 3, (8, 256), 1e-5
-MESH_DRYRUN = ((LM_ARCH, "train_4k", "single"), (LM_ARCH, "train_4k", "multi"),
-               (LM_ARCH, "decode_32k", "single"),
-               ("xlstm-125m", "prefill_32k", "single"))
+MESH_LEVERS = ("seq_shard", "attn_remat")
+MESH_DRYRUN = ((LM_ARCH, "train_4k", "single", ()),
+               (LM_ARCH, "train_4k", "multi", ()),
+               (LM_ARCH, "decode_32k", "single", ()),
+               ("xlstm-125m", "prefill_32k", "single", ()),
+               ("granite-moe-1b-a400m", "train_4k", "single", ()),
+               ("internlm2-20b", "train_4k", "single", MESH_LEVERS))
 # (c) also: gemma3-12b's local layer 0 at full width prefilled with
 # MESH_RING_PROMPT tokens (past its 1024 window) into a cache split along
 # its slots, and TokenPipeline(shardings=) batches of MESH_SHAPE
@@ -2885,7 +2894,8 @@ def mesh_phase(dev, smi) -> None:
     with tempfile.TemporaryDirectory() as out:
         dry = [(cell, time.perf_counter(), subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out],
+             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out]
+            + [a for o in cell[3] for a in ("--opt", o)],
             env=dict(os.environ, PYTHONPATH=str(SRC)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             for cell in MESH_DRYRUN]
@@ -2989,10 +2999,26 @@ def mesh_launcher(dev, failures) -> dict:
     return out
 
 
+def moe_whole_buffers(arch, shape_name) -> set:
+    """The shapes of the whole MoE dispatch buffer and token copies of a
+    cell ((B*E*C, d), (B, E*C, d), (B, E, C, d), (B*S*k, d), (B, S*k,
+    d)): a rank that scatters into its own batch rows allocates none."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models.moe import capacity
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    B, S, d = shape.global_batch, shape.seq_len, cfg.d_model
+    E, k, C = cfg.num_experts, cfg.top_k, capacity(cfg, shape.seq_len)
+    return {(B * E * C, d), (B, E * C, d), (B, E, C, d), (B * S * k, d),
+            (B, S * k, d)}
+
+
 def mesh_dryruns(dry, out, failures) -> list:
-    """(b) Wait for each dry-run subprocess and read its record."""
+    """(b) Wait for each dry-run subprocess and read its record; a MoE
+    cell's allocations live at the peak must hold no whole dispatch
+    buffer, and a cell run with levers must name them."""
+    from repro_torch.configs import get_config
     lines = []
-    for (arch, shape, mesh), t0, proc in dry:
+    for (arch, shape, mesh, opts), t0, proc in dry:
         try:
             log, _ = proc.communicate(timeout=max(
                 1.0, MESH_DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
@@ -3002,8 +3028,8 @@ def mesh_dryruns(dry, out, failures) -> list:
         wall = time.perf_counter() - t0
         path = Path(out) / f"{arch}--{shape}--{mesh}.json"
         line = {"part": "b_dryrun", "arch": arch, "shape": shape,
-                "mesh_kind": mesh, "returncode": proc.returncode,
-                "wall_s": wall}
+                "mesh_kind": mesh, "opts": list(opts),
+                "returncode": proc.returncode, "wall_s": wall}
         if proc.returncode != 0 or not path.exists():
             err = path.with_suffix(".error.json")
             line["error"] = (json.loads(err.read_text())["error"]
@@ -3020,7 +3046,19 @@ def mesh_dryruns(dry, out, failures) -> list:
                 fits_80gb=mem["fits"], cost=rec["cost"],
                 collectives=rec["collectives"],
                 model_flops_per_device=rec["model_flops_per_device"],
-                useful_flops_ratio=rec["useful_flops_ratio"], roofline=r)
+                useful_flops_ratio=rec["useful_flops_ratio"], roofline=r,
+                record_opts=rec["opts"])
+            if rec["opts"] != list(opts):
+                failures.append(f"b: {arch} {shape} {mesh}: record names "
+                                f"{rec['opts']}, not {list(opts)}")
+            if get_config(arch).num_experts:
+                whole = moe_whole_buffers(arch, shape)
+                held = [e for e in mem["temp_at_peak"]
+                        if tuple(e["shape"]) in whole]
+                line["moe_whole_buffers_at_peak"] = held
+                if held:
+                    failures.append(f"b: {arch} {shape} {mesh}: whole MoE "
+                                    f"buffers at the peak: {held}")
         lines.append(line)
     return lines
 

@@ -51,20 +51,23 @@ from repro_torch.train.step import make_decode_step, make_prefill_step, \
     make_train_step
 
 FSDP_RULES = {**DEFAULT_RULES, "embed": ("data",)}
-# the reference's ``--opt`` levers (``cfg.opt_*``) that the port's models
-# read; the others (decode_carry, seq_shard, attn_remat, chunk_remat)
-# shape XLA's scan and remat, which the port has no counterpart of
-PORT_LEVERS = ("head_nofsdp", "kv_int8")
+# the reference's ``--opt`` levers, each a ``cfg.opt_*`` flag that the
+# port's models read: head_nofsdp (``lm_specs``), kv_int8 (the caches),
+# seq_shard (``lm_forward``), attn_remat (``attend_full``), chunk_remat
+# (``ssm``'s chunked forms); decode_carry (caches updated in place) is
+# what the port's decode always does
+PORT_LEVERS = ("head_nofsdp", "decode_carry", "seq_shard", "attn_remat",
+               "kv_int8", "chunk_remat")
 
 
 def check_opts(opts) -> None:
-    """Raise ``ValueError`` naming each lever of ``opts`` that the port
-    does not implement, so that no record claims a lever it lacks."""
+    """Raise ``ValueError`` naming each lever of ``opts`` that the
+    reference does not have, so that no record claims a lever that
+    nothing reads."""
     missing = [o for o in opts if o not in PORT_LEVERS]
     if missing:
-        raise ValueError(f"the port does not implement --opt "
-                         f"{', '.join(missing)} (it has "
-                         f"{', '.join(PORT_LEVERS)})")
+        raise ValueError(f"no --opt lever {', '.join(missing)} (the "
+                         f"levers are {', '.join(PORT_LEVERS)})")
 
 
 def _dp_axes(mesh):
@@ -164,7 +167,10 @@ def lower_cell(arch: str, shape_name: str, mesh, *, fsdp: bool = True,
                shape=None):
     """``(Lowered, n_params, cfg)``. ``unroll`` is the reference's
     argument and changes nothing: the port's layers are a Python loop
-    already. ``opts`` outside ``PORT_LEVERS`` raise ``ValueError``.
+    already. So does ``opts``' ``decode_carry``: the port's decode
+    updates its caches in place, which is that lever's program. Each
+    lever of ``opts`` sets its ``cfg.opt_*``; a name outside
+    ``PORT_LEVERS`` raises ``ValueError``.
     ``config`` and ``shape`` (a ``ShapeConfig``), if given, stand in for
     the named ones (a smoke-size cell)."""
     check_opts(opts)
@@ -274,6 +280,7 @@ def analyse_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "useful_flops_ratio": (model_flops / chips) / flops if flops else 0.0,
         "roofline": terms,
         "traced_ops": compiled.recorder.ops,
+        "opts": list(opts),
     }
 
 
@@ -289,8 +296,8 @@ def main(argv=None):
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--opt", action="append", default=[],
-                    help="enable beyond-paper levers: "
-                         + ", ".join(PORT_LEVERS))
+                    help="enable a beyond-paper memory lever (repeat for "
+                         "more): " + ", ".join(PORT_LEVERS))
     args = ap.parse_args(argv)
     try:
         check_opts(args.opt)
@@ -335,7 +342,6 @@ def main(argv=None):
                     res = analyse_cell(arch, shape_name, multi_pod=multi,
                                        fsdp=not args.no_fsdp,
                                        opts=tuple(args.opt))
-                res["opts"] = list(args.opt)
                 path.write_text(json.dumps(res, indent=2))
                 r = res["roofline"]
                 print(f"  ok: compile={res['compile_s']}s "

@@ -94,6 +94,11 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _entries(groups) -> list:
+    return [{"op": op, "shape": list(shape), "dtype": dtype, "count": c,
+             "bytes": b} for (op, shape, dtype), c, b in groups]
+
+
 class StepRecorder(TorchDispatchMode):
     """Records the local program of whatever runs under it:
 
@@ -104,9 +109,13 @@ class StepRecorder(TorchDispatchMode):
     - ``bytes``: each op's local operand and output bytes, unfused (XLA's
       "bytes accessed" counts after fusion); views move nothing;
     - ``peak_bytes``: the peak of live bytes allocated by the ops it saw,
-      collectives' outputs included, followed through weak references
-      (meta tensors allocate nothing, so this is the count that a device
-      would hold);
+      collectives' outputs included, each output's storage followed
+      through a weak reference until it is freed (meta tensors allocate
+      nothing, so this is the count that a device would hold). A
+      storage, not the tensor object: autograd keeps a saved output, and
+      ``torch.utils.checkpoint`` what its recomputation saves, as another
+      tensor on the same storage, and an op that returns its input's
+      storage (``_unsafe_view``) allocates nothing;
     - ``peak_allocations``: what was live at that peak, grouped by the
       op, shape and dtype that made it, the ``PEAK_GROUPS`` largest.
 
@@ -134,6 +143,8 @@ class StepRecorder(TorchDispatchMode):
         self.repeated = 0
         self._times = 1
         self._live = {}          # (op, shape, dtype) -> [count, bytes]
+        self._storages = set()   # ids of the live storages followed
+        self._kept = {}          # a collective's wrapper -> its inputs
         self._at_peak = []
         self._peak_unread = False
 
@@ -144,15 +155,20 @@ class StepRecorder(TorchDispatchMode):
         self._peak_unread = False
 
     def _alloc(self, func, t: torch.Tensor) -> None:
-        n = _nbytes(t)
+        storage = t.untyped_storage()
+        if id(storage) in self._storages:  # a view that no schema names
+            return
+        n = storage.nbytes()
         key = (str(func), tuple(t.shape), str(t.dtype).replace("torch.", ""))
         entry = self._live.setdefault(key, [0, 0])
         entry[0] += 1
         entry[1] += n
         self.live_bytes += n
-        weakref.finalize(t, self._free, key, n)
+        self._storages.add(id(storage))
+        weakref.finalize(storage, self._free, key, n, id(storage))
 
-    def _free(self, key, n: int) -> None:
+    def _free(self, key, n: int, storage_id: int) -> None:
+        self._storages.discard(storage_id)
         if self._peak_unread:    # the first free after a new peak
             self._snapshot()
         self.live_bytes -= n
@@ -186,9 +202,13 @@ class StepRecorder(TorchDispatchMode):
         the peak, largest first."""
         if self._peak_unread:    # nothing freed since: live is the peak
             self._snapshot()
-        return [{"op": op, "shape": list(shape), "dtype": dtype,
-                 "count": c, "bytes": b}
-                for (op, shape, dtype), c, b in self._at_peak]
+        return _entries(self._at_peak)
+
+    @property
+    def live_allocations(self) -> list:
+        """As ``peak_allocations``, for what is live now (all of it)."""
+        return _entries(sorted(((k, c, b) for k, (c, b) in
+                                self._live.items()), key=lambda e: -e[2]))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -213,7 +233,16 @@ class StepRecorder(TorchDispatchMode):
             self._allocated(func, outs)
             return out
         if getattr(func, "namespace", None) in _FUNCTIONAL_NAMESPACES:
-            return out                 # a wait or wrapper of a collective
+            # a wait or wrapper of a collective: on meta tensors its
+            # output is another storage, and the collective's output
+            # lives as long as that one does
+            ins = [t for t in tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+            for t in outs:
+                self._kept[id(t)] = ins
+                weakref.finalize(t.untyped_storage(), self._kept.pop, id(t),
+                                 None)
+            return out
         returns = func._schema.returns
         aliases = [r.alias_info for r in returns if r.alias_info is not None]
         if aliases and not any(a.is_write for a in aliases):

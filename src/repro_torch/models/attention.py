@@ -27,12 +27,13 @@ cache.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import apply_rope
+from repro_torch.models.common import apply_rope, remat
 from repro_torch.sharding.api import ParamSpec, constrain, \
     contiguous_grad, distribute_like, gather_dim, is_dtensor, reshape, \
     write_index
@@ -169,7 +170,9 @@ def _wo(params, out):
 def attend_full(params, cfg, x, positions, *, causal=True, window=None,
                 kv_override=None, kv_positions=None):
     """Full-sequence attention, the queries in chunks of ``_pick_chunk(S)``
-    when longer than ``Q_CHUNK`` (each chunk against all keys).
+    when longer than ``Q_CHUNK`` (each chunk against all keys), each
+    chunk under ``torch.utils.checkpoint`` with ``cfg.opt_attn_remat``
+    while grad is enabled (nested inside block remat).
 
     kv_override: (k, v) for cross-attention (with causal=False).
     Returns (out, (k, v)).
@@ -187,9 +190,13 @@ def attend_full(params, cfg, x, positions, *, causal=True, window=None,
         kv_pos = kv_positions
     S = x.shape[1]
     chunk = _pick_chunk(S)
+    # opt_attn_remat: a chunk's probabilities are recomputed in the
+    # backward instead of saved: O(chunk * S) of them live, not O(S^2)
+    attend = remat(functools.partial(_full_attention, causal=causal,
+                                     window=window, scale=scale),
+                   cfg.opt_attn_remat and S > chunk)
     out = torch.cat([
-        _full_attention(q[:, i:i + chunk], k, v, positions[i:i + chunk],
-                        kv_pos, causal=causal, window=window, scale=scale)
+        attend(q[:, i:i + chunk], k, v, positions[i:i + chunk], kv_pos)
         for i in range(0, S, chunk)], dim=1)
     return _wo(params, out), (k, v)
 

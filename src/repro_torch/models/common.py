@@ -6,16 +6,30 @@ dtype where they are used, as the reference does.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.api import DTYPES, ParamSpec, constrain
 
 
 def cdtype(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
+
+
+def remat(fn, enabled: bool):
+    """``fn`` under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``) when ``enabled`` and grad is on: what it saves
+    for the backward is recomputed there instead of kept. ``fn`` itself
+    otherwise. The models draw no random numbers: no RNG state is
+    stashed."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +122,6 @@ def mlp(params, x):
     return dense(h, params["down"])
 
 
-__all__ = ["apply_rope", "cdtype", "dense", "dense_spec", "mlp",
+__all__ = ["apply_rope", "cdtype", "dense", "dense_spec", "mlp", "remat",
            "mlp_specs", "rmsnorm", "rmsnorm_spec", "rope_freqs", "silu",
            "sinusoidal_pos"]

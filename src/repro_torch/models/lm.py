@@ -20,22 +20,30 @@ layer) runs under ``torch.utils.checkpoint`` as the reference's
 ``jax.checkpoint`` body does: its activations are recomputed in the
 backward instead of kept. Remat moves memory, not values, and it is the
 identity while grad is disabled, so serving is unchanged.
+
+The reference's memory levers (``cfg.opt_*``, the dry run's ``--opt``)
+move memory, not values: ``opt_seq_shard`` splits the saved block
+inputs along the sequence over "model" (``lm_forward``),
+``opt_attn_remat`` recomputes each attention q-chunk
+(``attention.attend_full``), ``opt_chunk_remat`` each SSM chunk
+(``ssm.mamba2_train``/``mlstm_train``); ``opt_decode_carry`` (caches
+updated in place) is what ``lm_decode_step`` always does.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SHARED_ATTN, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import attend_decode, attend_full, \
     attention_specs, _proj
-from repro_torch.models.common import cdtype, mlp, mlp_specs, rmsnorm, \
-    rmsnorm_spec, sinusoidal_pos
-from repro_torch.sharding.api import ParamSpec, constrain, gather_dim, \
-    is_dtensor, shards_dim, tree_map, tree_map_specs
+from repro_torch.models.common import cdtype, mlp, mlp_specs, remat, \
+    rmsnorm, rmsnorm_spec, sinusoidal_pos
+from repro_torch.sharding.api import ParamSpec, constrain, \
+    contiguous_grad, gather_dim, is_dtensor, shards_dim, tree_map, \
+    tree_map_specs
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -89,15 +97,55 @@ def lm_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, tokens, positions):
-    # DTensor's rules for advanced indexing break (its backward's
-    # index_put, a batch split over two mesh axes) where the embedding
-    # lookup's hold, and a lookup into vocab shards leaves masked partial
-    # sums that some torch versions cannot add to or send a gradient
-    # through: the vocab shards are gathered first (a no-op unsharded)
-    x = F.embedding(tokens, gather_dim(params["embed"], 0)).to(cdtype(cfg))
+    table = params["embed"]
+    if is_dtensor(table):
+        x = _vocab_parallel_embed(table, tokens, cdtype(cfg))
+    else:
+        x = F.embedding(tokens, table).to(cdtype(cfg))
     if cfg.rope_theta <= 0.0:           # sinusoidal absolute positions
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)[None]
     return constrain(x, "batch", None, "embed")
+
+
+def _vocab_parallel_embed(table, tokens, dtype):
+    """The lookup of token rows in the DTensor ``table`` (vp, d), each
+    rank in its own vocab range (Megatron's vocab-parallel embedding):
+    the tokens outside ``[lo, hi)`` look up row 0 and are zeroed, and the
+    rows are summed over the mesh dims that split the vocab (one
+    non-zero term each: exact). The table's other splits (FSDP's d_model
+    shards) are gathered and the tokens keep their batch split; the
+    local table's gradient is the rank's own vocab shard, a partial sum
+    over the batch-split mesh dims. DTensor's own rules for the lookup
+    would gather the table whole on every rank, or leave masked partial
+    sums that some torch versions cannot add to or send a gradient
+    through. Returns a DTensor (B, S, d) in ``dtype``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, \
+        Shard, distribute_tensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = table.device_mesh
+    tok_place = (tokens.placements if is_dtensor(tokens)
+                 else (Replicate(),) * mesh.ndim)
+    vocab = [p == Shard(0) for p in table.placements]
+    rows = [Shard(0) if p == Shard(0) and not v else Replicate()
+            for p, v in zip(tok_place, vocab)]
+    want = [Shard(0) if v else Replicate() for v in vocab]
+    grads = [Shard(0) if v else Partial() if r == Shard(0) else Replicate()
+             for v, r in zip(vocab, rows)]
+    local = contiguous_grad(table.redistribute(mesh, want).to_local(
+        grad_placements=grads))
+    tok = (tokens.redistribute(mesh, rows) if is_dtensor(tokens)
+           else distribute_tensor(tokens, mesh, rows, src_data_rank=None)
+           ).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, want)
+    lo, hi = offset[0], offset[0] + shape[0]
+    mine = (tok >= lo) & (tok < hi)
+    x = F.embedding(torch.where(mine, tok - lo, 0), local).to(dtype)
+    x = x.masked_fill(~mine[..., None], 0)
+    x = _SumOverShards.apply(x, [mesh.get_group(i)
+                                 for i, v in enumerate(vocab) if v])
+    return DTensor.from_local(x, mesh, rows, run_check=False)
 
 
 def logits_fn(cfg, params, x):
@@ -128,17 +176,6 @@ def _rep(tree, r):
     return tree_map(lambda a: a[r], tree, is_leaf=torch.is_tensor)
 
 
-def _remat(cfg, body):
-    """``body`` under activation checkpointing where the reference wraps it
-    in ``jax.checkpoint``: ``cfg.remat == "block"`` while grad is
-    enabled; ``body`` itself otherwise."""
-    if cfg.remat != "block" or not torch.is_grad_enabled():
-        return body
-    # the model draws no random numbers: no RNG state to stash a call
-    return lambda *args: checkpoint(body, *args, use_reentrant=False,
-                                    preserve_rng_state=False)
-
-
 def encode(cfg, params, audio_embed):
     """audio_embed: (B, T, d) precomputed frontend stub output."""
     enc = params["encoder"]
@@ -154,7 +191,7 @@ def encode(cfg, params, audio_embed):
         x = x + out
         return x + mlp(prm["mlp"], rmsnorm(x, prm["norm2"], cfg.norm_eps))
 
-    run = _remat(cfg, body)
+    run = remat(body, cfg.remat == "block")
     for r in range(cfg.encoder_layers):
         x = run(x, r)
     return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
@@ -225,8 +262,20 @@ def lm_forward(cfg, params, batch, *, want_cache=False, max_seq=None,
         cross_kv = _cross_kv(cfg, params["cross"],
                              encode(cfg, params, batch["audio_embed"]))
 
+    # cfg.opt_seq_shard: Megatron-style sequence sharding of the block
+    # inputs that remat saves, split along the sequence over "model"
+    # (the reference's constraint at the top of its checkpointed body;
+    # here before the call, since ``checkpoint`` saves the tensor it is
+    # given). The body gathers the sequence back first: a recomputed
+    # temporary, and no product then meets a batch and sequence split
+    # at once (some torch versions cannot flatten them).
+    seq_shard = (cfg.opt_seq_shard and not want_cache
+                 and not cfg.is_encoder_decoder)
+
     def body(x, r):
         """Repetition ``r``: (x, its caches, its aux)."""
+        if seq_shard:
+            x = constrain(x, "batch", None, "embed")
         rep_caches, aux = [], torch.zeros((), dtype=torch.float32,
                                           device=x.device)
         for p_idx, kind in enumerate(cfg.block_pattern):
@@ -240,10 +289,12 @@ def lm_forward(cfg, params, batch, *, want_cache=False, max_seq=None,
                              _rep(cross_kv, r), positions)
         return x, rep_caches, aux
 
-    run = body if want_cache else _remat(cfg, body)
+    run = remat(body, cfg.remat == "block" and not want_cache)
     caches = [[] for _ in cfg.block_pattern]
     auxs = []
     for r in range(cfg.pattern_repeats):
+        if seq_shard:
+            x = constrain(x, "batch", "seq_shard", None)
         x, rep_caches, a = run(x, r)
         for p_idx, cache in enumerate(rep_caches):
             caches[p_idx].append(cache)

@@ -11,6 +11,11 @@ Capacity is applied per sequence (group = batch row), giving a fixed
 past its expert's capacity is dropped: it adds zeros into slot C - 1,
 which a kept token may hold, so the dispatch is an add, never an
 assignment.
+
+The dispatch and the combine work row by row, as the reference's
+``vmap`` over batch rows does: on a mesh each rank scatters into, and
+gathers from, the buffers of its own batch rows only
+(``sharding.api.batch_local``), the expert dim of the outputs gathered.
 """
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ import math
 import torch
 
 from repro_torch.models.common import silu
-from repro_torch.sharding.api import ParamSpec, constrain, \
-    contiguous_grad, is_dtensor, reshape, whole_local
+from repro_torch.sharding.api import ParamSpec, batch_local, constrain, \
+    contiguous_grad, is_dtensor
 
 
 def moe_specs(cfg) -> dict:
@@ -83,8 +88,10 @@ def _expert_parallel(params, xe):
     """``_expert_ffn`` over DTensors, each rank on its own experts (those
     of the mesh dims that split ``gate``'s experts) and batch rows, the
     weights' other splits gathered: DTensor cannot flatten the batch and
-    sharded expert dims of a batched product in some torch versions."""
-    from torch.distributed.tensor import Replicate, Shard
+    sharded expert dims of a batched product in some torch versions.
+    A weight's local gradient comes from the rank's batch rows alone: a
+    partial sum over the mesh dims that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     ref = next(t for t in (xe, params["gate"]) if is_dtensor(t))
     mesh = ref.device_mesh
@@ -95,11 +102,14 @@ def _expert_parallel(params, xe):
     place_x = [Shard(1) if e else Shard(0) if p == Shard(0) else Replicate()
                for e, p in zip(ep, px)]
     place_w = [Shard(0) if e else Replicate() for e in ep]
+    grad_w = [Partial() if x == Shard(0) else w
+              for x, w in zip(place_x, place_w)]
     names = ("gate", "up", "down")
     return local_map(
         lambda x, *w: _expert_ffn(
             dict(zip(names, map(contiguous_grad, w))), contiguous_grad(x)),
         out_placements=place_x, in_placements=(place_x,) + (place_w,) * 3,
+        in_grad_placements=(place_x,) + (grad_w,) * 3,
         device_mesh=mesh, redistribute_inputs=True)(
             xe, *(params[n] for n in names))
 
@@ -115,6 +125,30 @@ def _expert_ffn(params, xe):
     return torch.matmul(h, params["down"].to(dt))
 
 
+def _flat_rows(slot, n_slots):
+    """Row b's slots (B, Sk) as rows of one flat buffer of B * n_slots
+    rows: b * n_slots + slot."""
+    B = slot.shape[0]
+    return (slot + torch.arange(B, device=slot.device)[:, None] * n_slots
+            ).reshape(-1)
+
+
+def _dispatch(vals, slot, E, C):
+    """Row b's values added into its E * C slots at ``slot[b]``. vals:
+    (B, Sk, d), slot: (B, Sk) -> (B, E, C, d), by one ``index_add``."""
+    B, Sk, d = vals.shape
+    xe = torch.zeros((B * E * C, d), dtype=vals.dtype, device=vals.device)
+    return xe.index_add(0, _flat_rows(slot, E * C),
+                        vals.reshape(B * Sk, d)).reshape(B, E, C, d)
+
+
+def _combine_rows(ye, slot):
+    """Row b's expert outputs at ``slot[b]``. ye: (B, E, C, d), slot:
+    (B, Sk) -> (B, Sk, d)."""
+    B, E, C, d = ye.shape
+    return ye.reshape(B * E * C, d)[_flat_rows(slot, E * C)].reshape(B, -1, d)
+
+
 def moe_scatter(params, cfg, x):
     """Scatter-based MoE. x: (B,S,d) -> (y, aux_loss)."""
     B, S, d = x.shape
@@ -125,19 +159,18 @@ def moe_scatter(params, cfg, x):
     keep = pos < C
     flat_slot = top_idx * C + torch.clamp(pos, max=C - 1)       # (B,S,k)
 
-    x_rep = x[:, :, None, :].expand(B, S, k, d).reshape(B * S * k, d)
+    x_rep = x[:, :, None, :].expand(B, S, k, d).reshape(B, S * k, d)
+    slot = flat_slot.reshape(B, S * k)
     keep_f = keep.reshape(B, S * k, 1).to(x.dtype)
-    # one buffer of B * E * C rows: row b * E * C + slot
-    rows = (flat_slot.reshape(B, S * k)
-            + torch.arange(B, device=x.device)[:, None] * (E * C)).reshape(-1)
-    xe = torch.zeros((B * E * C, d), dtype=x.dtype, device=x.device)
-    xe = whole_local(lambda xe, rows, src: xe.index_add(0, rows, src),
-                     xe, rows, x_rep * keep_f.reshape(-1, 1))
-    xe = constrain(xe.reshape(B, E, C, d), "batch", "expert", None, None)
-    ye = reshape(_expert_ffn(params, xe), B * E * C, d)
+    # each rank its own batch rows (a DTensor's batch split): DTensor has
+    # no rule for a scatter or gather by computed rows
+    xe = batch_local(lambda _, v, s: _dispatch(v, s, E, C), None,
+                     x_rep * keep_f, slot)
+    xe = constrain(xe, "batch", "expert", None, None)
+    ye = _expert_ffn(params, xe)
 
-    y_sel = whole_local(lambda ye, rows: ye[rows], ye, rows)
-    y_sel = y_sel.reshape(B, S * k, d)                          # (B,Sk,d)
+    y_sel = batch_local(lambda _, ye, s: _combine_rows(ye, s), None,
+                        ye, slot)                               # (B,Sk,d)
     w = top_w.reshape(B, S * k, 1).to(x.dtype) * keep_f
     y = torch.sum((y_sel * w).reshape(B, S, k, d), dim=2)
     return constrain(y, "batch", None, "embed"), aux

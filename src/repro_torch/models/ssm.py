@@ -1,6 +1,6 @@
 """Recurrent sequence mixers: Mamba2 (SSD), xLSTM's mLSTM and sLSTM — the
 port of ``src/repro/models/ssm.py``, function by function, for
-inference.
+inference and training.
 
 A full sequence (``*_train``) uses the chunk-parallel forms: quadratic
 within a chunk of ``Q = min(cfg.ssm_chunk, L)`` tokens, and a Python loop
@@ -22,16 +22,19 @@ Gates and states are float32 whatever ``cfg.dtype`` is, as in the
 reference — float64 in a float64 config, which the reference has no use
 for and the port's card checks use as their exact yardstick (``_f32``).
 
-``cfg.opt_chunk_remat`` (and the reference's ``jax.remat``) only matter
-for a backward pass: they are accepted and ignored here. A step returns
-a new state dict; the block layer copies it into the caller's cache.
+With ``cfg.opt_chunk_remat``, while grad is enabled, each chunk of the
+Mamba2 and mLSTM chunked forms runs under ``torch.utils.checkpoint``, as
+the reference's scan body runs under ``jax.checkpoint``: its O(Q^2)
+intermediates are recomputed in the backward instead of saved (memory,
+not values). A step returns a new state dict; the block layer copies it
+into the caller's cache.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-from repro_torch.models.common import rmsnorm, silu
+from repro_torch.models.common import remat, rmsnorm, silu
 from repro_torch.sharding.api import ParamSpec
 
 _MASKED = -1e30         # the reference's mask value, inside the exponent
@@ -140,6 +143,25 @@ def _causal_conv(xh, w):
     return silu(out)
 
 
+def _ssd_chunk(state, xb, Bq, Cq, la, tri):
+    """One SSD chunk: (state after it, its output (B,Q,H,P))."""
+    la_last = la[:, -1]                                          # (B,H)
+    # inter: y_i = exp(la_i) * C_i . S_prev
+    y_inter = torch.einsum("bqn,bhpn->bqhp", Cq, state) \
+        * torch.exp(la)[..., None]
+    # intra: y_i = sum_{j<=i} (C_i.B_j) exp(la_i - la_j) xbar_j
+    G = torch.einsum("bin,bjn->bij", Cq, Bq)                     # (B,Q,Q)
+    ldiff = torch.where(tri, la[:, :, None, :] - la[:, None, :, :],
+                        _MASKED)
+    W = G[..., None] * torch.exp(ldiff)                          # (B,Q,Q,H)
+    y_intra = torch.einsum("bijh,bjhp->bihp", W, xb)
+    decay_state = torch.exp(la_last[:, None, :] - la)            # (B,Q,H)
+    state = (state * torch.exp(la_last)[:, :, None, None]
+             + torch.einsum("bqhp,bqn->bhpn",
+                            decay_state[..., None] * xb, Bq))
+    return state, y_inter + y_intra
+
+
 def mamba2_train(params, cfg, x, return_state=False):
     """Chunk-parallel SSD. x: (B,L,d) -> (B,L,d) [, final state]."""
     B, L, d = x.shape
@@ -158,24 +180,12 @@ def mamba2_train(params, cfg, x, return_state=False):
     lda = _cumsum(dtc * A, 2)                                    # (B,nc,Q,H)
     tri = _chunk_mask(Q, x.device)
     state = torch.zeros((B, H, P, N), dtype=xbar.dtype, device=x.device)
+    chunk = remat(_ssd_chunk, cfg.opt_chunk_remat)
     ys = []
     for c in range(nc):
-        xb, Bq, Cq, la = xbar[:, c], Bc[:, c], Cc[:, c], lda[:, c]
-        la_last = la[:, -1]                                      # (B,H)
-        # inter: y_i = exp(la_i) * C_i . S_prev
-        y_inter = torch.einsum("bqn,bhpn->bqhp", Cq, state) \
-            * torch.exp(la)[..., None]
-        # intra: y_i = sum_{j<=i} (C_i.B_j) exp(la_i - la_j) xbar_j
-        G = torch.einsum("bin,bjn->bij", Cq, Bq)                 # (B,Q,Q)
-        ldiff = torch.where(tri, la[:, :, None, :] - la[:, None, :, :],
-                            _MASKED)
-        W = G[..., None] * torch.exp(ldiff)                      # (B,Q,Q,H)
-        y_intra = torch.einsum("bijh,bjhp->bihp", W, xb)
-        decay_state = torch.exp(la_last[:, None, :] - la)        # (B,Q,H)
-        state = (state * torch.exp(la_last)[:, :, None, None]
-                 + torch.einsum("bqhp,bqn->bhpn",
-                                decay_state[..., None] * xb, Bq))
-        ys.append(y_inter + y_intra)
+        state, y_c = chunk(state, xbar[:, c], Bc[:, c], Cc[:, c], lda[:, c],
+                           tri)
+        ys.append(y_c)
     y = torch.stack(ys, dim=1).reshape(B, L, H, P)
     y = y + params["D"][None, None, :, None] * _f32(xh.reshape(B, L, H, P))
     y = y.reshape(B, L, H * P).to(x.dtype)
@@ -270,6 +280,33 @@ def _mlstm_inputs(params, cfg, x):
     return z, _f32(q) * scale, _f32(k), _f32(v), li, lf, H, P
 
 
+def _mlstm_chunk(C, n, qc, kc, vc, lic, lfcc, tri):
+    """One chunk of the chunked mLSTM: (C, n after it, its output
+    (B,Q,H,P))."""
+    lf_last = lfcc[:, -1]                                        # (B,H)
+    # inter-chunk
+    e = torch.exp(lfcc)                                          # (B,Q,H)
+    y_inter = torch.einsum("bqhp,bhpo->bqho", qc, C) * e[..., None]
+    den_inter = torch.einsum("bqhp,bhp->bqh", qc, n) * e
+    # intra-chunk: D_ij = exp(lfc_i - lfc_j + li_j), j <= i
+    ldm = (lfcc[:, :, None, :] - lfcc[:, None, :, :]
+           + lic[:, None, :, :])                                 # (B,Q,Q,H)
+    Dm = torch.exp(torch.where(tri, ldm, _MASKED))  # mask inside the exponent
+    S = torch.einsum("bihp,bjhp->bijh", qc, kc)                  # scores
+    W = Dm * S
+    y_intra = torch.einsum("bijh,bjho->biho", W, vc)
+    den_intra = W.sum(dim=2)                                     # (B,Q,H)
+    # state update
+    wdec = torch.exp(lf_last[:, None, :] - lfcc + lic)           # (B,Q,H)
+    C = (C * torch.exp(lf_last)[:, :, None, None]
+         + torch.einsum("bqhp,bqho->bhpo", wdec[..., None] * kc, vc))
+    n = (n * torch.exp(lf_last)[:, :, None]
+         + (wdec[..., None] * kc).sum(dim=1))
+    num = y_inter + y_intra
+    den = den_inter + den_intra
+    return C, n, num / torch.clamp_min(den.abs(), 1.0)[..., None]
+
+
 def mlstm_train(params, cfg, x, return_state=False):
     """Chunked linear-attention form (no stabilizer; fp32 log-space)."""
     B, L, d = x.shape
@@ -281,32 +318,12 @@ def mlstm_train(params, cfg, x, return_state=False):
     tri = _chunk_mask(Q, x.device)
     C = torch.zeros((B, H, P, P), dtype=q.dtype, device=x.device)
     n = torch.zeros((B, H, P), dtype=q.dtype, device=x.device)
+    chunk = remat(_mlstm_chunk, cfg.opt_chunk_remat)
     ys = []
     for c in range(nc):
-        qc, kc, vc, lic, lfcc = qs[:, c], ks[:, c], vs[:, c], lis[:, c], \
-            lfc[:, c]
-        lf_last = lfcc[:, -1]                                    # (B,H)
-        # inter-chunk
-        e = torch.exp(lfcc)                                      # (B,Q,H)
-        y_inter = torch.einsum("bqhp,bhpo->bqho", qc, C) * e[..., None]
-        den_inter = torch.einsum("bqhp,bhp->bqh", qc, n) * e
-        # intra-chunk: D_ij = exp(lfc_i - lfc_j + li_j), j <= i
-        ldm = (lfcc[:, :, None, :] - lfcc[:, None, :, :]
-               + lic[:, None, :, :])                             # (B,Q,Q,H)
-        Dm = torch.exp(torch.where(tri, ldm, _MASKED))  # mask inside the exponent
-        S = torch.einsum("bihp,bjhp->bijh", qc, kc)              # scores
-        W = Dm * S
-        y_intra = torch.einsum("bijh,bjho->biho", W, vc)
-        den_intra = W.sum(dim=2)                                 # (B,Q,H)
-        # state update
-        wdec = torch.exp(lf_last[:, None, :] - lfcc + lic)       # (B,Q,H)
-        C = (C * torch.exp(lf_last)[:, :, None, None]
-             + torch.einsum("bqhp,bqho->bhpo", wdec[..., None] * kc, vc))
-        n = (n * torch.exp(lf_last)[:, :, None]
-             + (wdec[..., None] * kc).sum(dim=1))
-        num = y_inter + y_intra
-        den = den_inter + den_intra
-        ys.append(num / torch.clamp_min(den.abs(), 1.0)[..., None])
+        C, n, h = chunk(C, n, qs[:, c], ks[:, c], vs[:, c], lis[:, c],
+                        lfc[:, c], tri)
+        ys.append(h)
     y = torch.stack(ys, dim=1).reshape(B, L, H * P).to(x.dtype)
     y = y * silu(z)
     y = rmsnorm(y, params["norm"], cfg.norm_eps)

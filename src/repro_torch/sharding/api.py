@@ -393,28 +393,6 @@ def distribute_like(x: torch.Tensor, ref):
     return _place(x, ref.device_mesh, ref.placements)
 
 
-def _local_input(x):
-    return contiguous_grad(x) if isinstance(x, torch.Tensor) else x
-
-
-def whole_local(fn, *args):
-    """``fn(*args)`` on whole tensors, for an op that DTensor has no rule
-    for (a scatter or gather by computed rows): the DTensors of ``args``
-    are gathered whole on every rank, ``fn`` runs on them as plain
-    tensors, and its one tensor comes back replicated. Without a
-    DTensor: ``fn(*args)``."""
-    ref = next((t for t in args if is_dtensor(t)), None)
-    if ref is None:
-        return fn(*args)
-    from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
-    rep = [Replicate()] * ref.device_mesh.ndim
-    return local_map(lambda *a: fn(*map(_local_input, a)), out_placements=rep,
-                     in_placements=tuple(rep for _ in args),
-                     device_mesh=ref.device_mesh,
-                     redistribute_inputs=True)(*args)
-
-
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose gradient is made contiguous. DTensor wraps the
     gradient of a local tensor with the layout of the DTensor it came
@@ -439,7 +417,8 @@ def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
 def batch_local(fn, params, *args):
     """``fn(params, *args)`` on each rank's own batch rows, for code that
     DTensor cannot propagate (the recurrent mixers' loops and batched
-    products over sharded heads). ``params`` are gathered whole; every
+    products over sharded heads, MoE's scatter and gather by computed
+    rows). ``params`` are gathered whole (``None`` for none); every
     tensor in ``args`` and in ``fn``'s output is batch-leading and split
     over the mesh dims that split the first DTensor of ``args`` along
     its batch, whole over the others. The parameters' gradients are
@@ -663,5 +642,5 @@ __all__ = ["AbstractMesh", "DEFAULT_RULES", "DTYPES", "NamedSharding", "P",
            "sharding_of", "shards_dim", "spec_partition_specs", "spec_shapes",
            "spec_shardings",
            "tree_flatten_with_path", "tree_leaves", "tree_map",
-           "tree_map_specs", "tree_unflatten", "use_mesh", "whole_local",
-           "write_index", "write_slice"]
+           "tree_map_specs", "tree_unflatten", "use_mesh", "write_index",
+           "write_slice"]

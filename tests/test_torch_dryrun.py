@@ -11,8 +11,14 @@ local program of rank 0.
   ``FlopCounterMode``'s count of the plain step, and a product sharded
   four ways counts a quarter of its global FLOPs.
 - ``main`` writes the reference's JSON layout, ``.error.json`` for a cell
-  that fails, and a skip record for a skipped cell; the reference's
-  ``--opt`` levers that the port lacks are refused, its own applied.
+  that fails, and a skip record for a skipped cell; each of the
+  reference's six ``--opt`` levers is accepted (repeated ``--opt``s too)
+  and named in the record, a name the reference lacks refused.
+- The levers move memory: ``seq_shard`` leaves the residual stream's
+  block inputs split along the sequence at the peak, ``attn_remat`` one
+  q-chunk of probabilities, ``chunk_remat`` lowers the peak.
+- MoE dispatch and combine hold only the rank's batch rows, and a
+  prefill's embedding lookup no whole table.
 - ``StepRecorder`` keeps what is live at the peak, collectives' outputs
   included; a sharded train cell's peak holds no logits whole along
   the vocab.
@@ -41,7 +47,7 @@ from repro_torch.launch import dryrun, hlo_analysis
 from repro_torch.models import lm_loss, lm_specs
 from repro_torch.models.lm import padded_vocab
 from repro_torch.sharding.api import NamedSharding, P, distribute, \
-    sharding_of, spec_shapes, tree_leaves
+    sharding_of, spec_shapes, tree_leaves, tree_map, use_mesh
 
 SMOKE_TRAIN = ShapeConfig("train_4k", "train", 32, 8)
 # the reference's src/repro/launch/dryrun.py:44 (importing that module
@@ -249,16 +255,58 @@ def test_sharded_train_cell_holds_no_whole_vocab_logits(world8):
     assert any(e["shape"][-1:] == [padded_vocab(cfg) // 4] for e in at_peak)
 
 
+def _smoke_main(monkeypatch):
+    """``dryrun.main`` over smoke configs and a smoke ``train_4k``."""
+    monkeypatch.setattr(dryrun, "get_config", get_smoke_config)
+    monkeypatch.setattr(dryrun, "SHAPES", {
+        "train_4k": ShapeConfig("train_4k", "train", 16, 32)})
+
+
 @pytest.mark.parametrize("lever", ["decode_carry", "seq_shard", "attn_remat",
                                    "chunk_remat"])
-def test_levers_the_port_lacks_are_refused(tmp_path, lever):
-    with pytest.raises(ValueError, match=lever):
-        dryrun.lower_cell("smollm-135m", "train_4k", None, opts=(lever,))
+def test_levers_the_port_lacks_are_refused(tmp_path, monkeypatch, lever):
+    """The four levers the port once refused are accepted now, each
+    named in the record (``decode_carry`` changes nothing: the port's
+    caches are written in place)."""
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        _, _, cfg = dryrun.lower_cell(
+            "smollm-135m", "train_4k", mesh, opts=(lever,),
+            config=get_smoke_config("smollm-135m"), shape=SMOKE_TRAIN)
+    assert getattr(cfg, f"opt_{lever}")
+    _smoke_main(monkeypatch)
+    out = tmp_path / "dry"
+    dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
+                 "--opt", lever, "--out", str(out)])
+    rec = json.loads((out / "smollm-135m--train_4k--single.json").read_text())
+    assert rec["opts"] == [lever]
+    assert rec["memory"]["temp_bytes"] > 0
+    assert not dist.is_initialized()
+
+
+def test_a_lever_the_reference_lacks_is_refused(tmp_path):
+    with pytest.raises(ValueError, match="no_such_lever"):
+        dryrun.lower_cell("smollm-135m", "train_4k", None,
+                          opts=("seq_shard", "no_such_lever"))
     out = tmp_path / "dry"
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
-                     "--opt", lever, "--out", str(out)])
+                     "--opt", "no_such_lever", "--out", str(out)])
     assert not out.exists()
+    assert set(dryrun.PORT_LEVERS) == {
+        "head_nofsdp", "decode_carry", "seq_shard", "attn_remat", "kv_int8",
+        "chunk_remat"}
+
+
+def test_repeated_opts_are_all_applied_and_named(tmp_path, monkeypatch):
+    _smoke_main(monkeypatch)
+    out = tmp_path / "dry"
+    dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k", "--opt",
+                 "seq_shard", "--opt", "attn_remat", "--out", str(out)])
+    rec = json.loads((out / "smollm-135m--train_4k--single.json").read_text())
+    assert rec["opts"] == ["seq_shard", "attn_remat"]
+    assert not dist.is_initialized()
 
 
 def test_port_levers_apply(world8):
@@ -269,6 +317,132 @@ def test_port_levers_apply(world8):
                                       config=cfg, shape=shape, opts=o)
                   for o in ((), ("kv_int8",)))
     assert int8["memory"]["argument_bytes"] < base["memory"]["argument_bytes"]
+
+
+class _AllShapes(hlo_analysis.StepRecorder):
+    """A recorder that also counts every allocation's shape."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.shapes = {}
+
+    def _alloc(self, func, t):
+        self.shapes[tuple(t.shape)] = self.shapes.get(tuple(t.shape), 0) + 1
+        super()._alloc(func, t)
+
+
+def _all_shapes(monkeypatch, mesh, arch, shape, opts=()):
+    monkeypatch.setattr(dryrun, "StepRecorder", _AllShapes)
+    lowered, _, cfg = dryrun.lower_cell(arch, shape.name, mesh, opts=opts,
+                                        config=get_smoke_config(arch),
+                                        shape=shape)
+    return lowered.compile().recorder.shapes, cfg
+
+
+def test_moe_dispatch_holds_only_the_ranks_rows(world8, monkeypatch):
+    """granite's smoke train cell on ``(2, 4)``: the dispatch buffer and
+    the token copies of the combine are the rank's 4 batch rows of 8,
+    never all of them (sizes chosen so that no two shapes coincide)."""
+    from repro_torch.models.moe import capacity
+    shape = ShapeConfig("train_4k", "train", 40, 8)
+    seen, cfg = _all_shapes(monkeypatch, world8, "granite-moe-1b-a400m",
+                            shape)
+    B, S, d = shape.global_batch, shape.seq_len, cfg.d_model
+    E, k, C = cfg.num_experts, cfg.top_k, capacity(cfg, shape.seq_len)
+    b = B // 2                                   # the "data" split
+    assert len({B * E * C, B * S * k, b * E * C, b * S * k, d}) == 5
+    for whole in [(B * E * C, d), (B, E * C, d), (B, E, C, d),
+                  (B * S * k, d), (B, S * k, d)]:
+        assert whole not in seen, whole
+    assert seen.get((b * E * C, d), 0) > 0       # the rank's buffer
+    assert seen.get((b, S * k, d), 0) > 0        # its token copies
+
+
+def test_prefill_cell_holds_no_whole_embedding_table(world8, monkeypatch):
+    """The lookup of a prefill cell (DEFAULT_RULES: the table's vocab on
+    "model") runs on the rank's vocab shard: no allocation holds the
+    table whole, and the rows come back summed over "model"."""
+    shape = ShapeConfig("prefill_32k", "prefill", 48, 8)
+    seen, cfg = _all_shapes(monkeypatch, world8, "qwen2.5-32b", shape)
+    vp, d = padded_vocab(cfg), cfg.d_model
+    assert len({vp, vp // 2, shape.seq_len * shape.global_batch // 2,
+                shape.seq_len * shape.global_batch}) == 4
+    assert (vp, d) not in seen and (vp // 2, d) not in seen
+    assert seen.get((shape.global_batch // 2, shape.seq_len, d), 0) > 0
+
+
+def _peak(world8, arch, shape, opts=()):
+    return dryrun.analyse_cell(arch, shape.name, multi_pod=False,
+                               mesh=world8, config=get_smoke_config(arch),
+                               shape=shape, opts=opts)
+
+
+def _saved_by_forward(mesh, arch, shape, opts):
+    """What is live once ``lm_loss``'s forward has run on a cell's
+    arguments with grad enabled: what the backward will read."""
+    lowered, _, cfg = dryrun.lower_cell(arch, shape.name, mesh, opts=opts,
+                                        config=get_smoke_config(arch),
+                                        shape=shape)
+    params, _, batch = lowered.args
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    rec = hlo_analysis.StepRecorder(device_type="meta")
+    with use_mesh(mesh), rec:
+        loss, _ = lm_loss(cfg, live, batch)     # its graph holds them
+    assert loss.requires_grad
+    return rec.live_allocations, cfg
+
+
+def test_seq_shard_splits_the_saved_block_inputs(world8):
+    """smollm's smoke train cell (3 layers): after the forward, each
+    layer's saved block input is the rank's (B/2, S/4, d) slice of the
+    residual stream (split along the sequence over "model") instead of
+    (B/2, S, d), and the step's peak is lower."""
+    shape = ShapeConfig("train_4k", "train", 256, 8)
+
+    def stream(saved, seq):
+        return sum(e["count"] for e in saved
+                   if e["shape"] == [4, seq, cfg.d_model]
+                   and e["dtype"] == "bfloat16")
+    base, cfg = _saved_by_forward(world8, "smollm-135m", shape, ())
+    lever, _ = _saved_by_forward(world8, "smollm-135m", shape,
+                                 ("seq_shard",))
+    layers = cfg.num_layers
+    assert stream(base, 64) == 0 and stream(base, 256) >= layers
+    assert stream(lever, 64) == layers
+    assert stream(lever, 256) == stream(base, 256) - layers
+    peak = [_peak(world8, "smollm-135m", shape, o)["memory"]["temp_bytes"]
+            for o in ((), ("seq_shard",))]
+    assert peak[1] < peak[0]
+
+
+def test_attn_remat_keeps_one_q_chunk_of_probabilities(world8):
+    """smollm's smoke train cell at S 2048 (two q-chunks of 1024): under
+    block remat the backward holds the softmax outputs of both chunks
+    of a layer at the peak; with ``attn_remat`` one, and a lower peak."""
+    shape = ShapeConfig("train_4k", "train", 2048, 4)
+
+    def probs(rec):
+        return sum(e["count"] for e in rec["memory"]["temp_at_peak"]
+                   if e["op"] == "aten._softmax.default"
+                   and e["shape"][-2:] == [1024, 2048])
+    base = _peak(world8, "smollm-135m", shape)
+    lever = _peak(world8, "smollm-135m", shape, ("attn_remat",))
+    assert probs(base) == 2
+    assert probs(lever) == 1
+    assert lever["memory"]["temp_bytes"] < base["memory"]["temp_bytes"]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_chunk_remat_lowers_the_peak(world8, arch):
+    """The smoke train cell over 8 SSM chunks of 16: a chunk's
+    intermediates are recomputed, not saved, in the backward."""
+    shape = ShapeConfig("train_4k", "train", 128, 8)
+    base = _peak(world8, arch, shape)
+    lever = _peak(world8, arch, shape, ("chunk_remat",))
+    assert lever["opts"] == ["chunk_remat"]
+    assert lever["memory"]["temp_bytes"] < base["memory"]["temp_bytes"]
+    for key in ("flops_per_device", "bytes_per_device"):   # recomputed
+        assert lever["cost"][key] > base["cost"][key]
 
 
 @pytest.mark.parametrize("spec", [P(), P("data"), P(None, "model"),
