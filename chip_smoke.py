@@ -168,8 +168,13 @@ Phases, each printing one JSON line:
    recorded one step deep and counted 32,768 times), of
    granite-moe-1b-a400m ``train_4k`` on 16 x 16 (no allocation holds the
    whole MoE dispatch buffer: each rank scatters into its own batch
-   rows) and of internlm2-20b ``train_4k`` on 16 x 16 with ``--opt
-   seq_shard --opt attn_remat`` (the record names both), each in a
+   rows), of internlm2-20b ``train_4k`` on 16 x 16 with ``--opt
+   seq_shard --opt attn_remat`` (the record names both), of
+   chameleon-34b ``train_4k`` with the same levers (it fits 80 GB, and
+   no allocation at its peak holds all 64 query heads: each rank attends
+   its own against its 8 whole KV heads) and of zamba2-2.7b
+   ``decode_32k`` (its Mamba2 mixers split over their heads; the line
+   gives its collective bytes), each in a
    subprocess started once (a) has ended (so
    that (a)'s host-bound steps have the host to themselves), over a
    fake world (no device touched): peak bytes a device against 80 GB
@@ -309,7 +314,9 @@ MESH_DRYRUN = ((LM_ARCH, "train_4k", "single", ()),
                (LM_ARCH, "decode_32k", "single", ()),
                ("xlstm-125m", "prefill_32k", "single", ()),
                ("granite-moe-1b-a400m", "train_4k", "single", ()),
-               ("internlm2-20b", "train_4k", "single", MESH_LEVERS))
+               ("internlm2-20b", "train_4k", "single", MESH_LEVERS),
+               ("chameleon-34b", "train_4k", "single", MESH_LEVERS),
+               ("zamba2-2.7b", "decode_32k", "single", ()))
 # (c) also: gemma3-12b's local layer 0 at full width prefilled with
 # MESH_RING_PROMPT tokens (past its 1024 window) into a cache split along
 # its slots, and TokenPipeline(shardings=) batches of MESH_SHAPE
@@ -3012,10 +3019,25 @@ def moe_whole_buffers(arch, shape_name) -> set:
             (B, S * k, d)}
 
 
+def whole_query_heads(arch, entries) -> list:
+    """The allocations of ``entries`` that hold all of ``arch``'s query
+    heads: scores (b, n_kv, g, Sq, Sk) with n_kv * g of them, or q-like
+    (b, S, n_heads, head_dim). A rank that attends its own query heads
+    (the KV heads whole where they do not divide "model") holds none."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return [e for e in entries if (len(e["shape"]) == 5 and e["shape"][1:3]
+                                   == [nkv, nq // nkv]) or
+            (len(e["shape"]) == 4 and e["shape"][2:] == [nq, hd])]
+
+
 def mesh_dryruns(dry, out, failures) -> list:
     """(b) Wait for each dry-run subprocess and read its record; a MoE
     cell's allocations live at the peak must hold no whole dispatch
-    buffer, and a cell run with levers must name them."""
+    buffer, a cell run with levers must name them, and chameleon's
+    lever cell must fit 80 GB with no allocation of all its query heads
+    at the peak."""
     from repro_torch.configs import get_config
     lines = []
     for (arch, shape, mesh, opts), t0, proc in dry:
@@ -3045,6 +3067,7 @@ def mesh_dryruns(dry, out, failures) -> list:
                 memory=mem, peak_gb=mem["peak_bytes_est"] / 1e9,
                 fits_80gb=mem["fits"], cost=rec["cost"],
                 collectives=rec["collectives"],
+                collective_gb=rec["collectives"]["total"] / 1e9,
                 model_flops_per_device=rec["model_flops_per_device"],
                 useful_flops_ratio=rec["useful_flops_ratio"], roofline=r,
                 record_opts=rec["opts"])
@@ -3059,6 +3082,13 @@ def mesh_dryruns(dry, out, failures) -> list:
                 if held:
                     failures.append(f"b: {arch} {shape} {mesh}: whole MoE "
                                     f"buffers at the peak: {held}")
+            if arch == "chameleon-34b":
+                held = whole_query_heads(arch, mem["temp_at_peak"])
+                line["whole_query_heads_at_peak"] = held
+                if held or not mem["fits"]:
+                    failures.append(f"b: {arch} {shape} {mesh}: fits 80 GB "
+                                    f"{mem['fits']}, all query heads at "
+                                    f"the peak: {held}")
         lines.append(line)
     return lines
 

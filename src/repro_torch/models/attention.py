@@ -93,6 +93,23 @@ def _project_kv(params, x):
     return k, v
 
 
+def _query_split(q, k, place, pq):
+    """The mesh dim that splits the query heads alone (k and v whole on
+    it), where each rank's block of ``nq / M`` query heads lines up with
+    the groups (``nq / M`` divides the group size ``g`` or ``g`` divides
+    it) and no mesh dim splits the heads of all three; else None."""
+    from torch.distributed.tensor import Shard
+    dims = [i for i, (a, p) in enumerate(zip(pq, place))
+            if a == Shard(2) and p != Shard(2)]
+    if len(dims) != 1 or Shard(2) in place:
+        return None
+    nq, nkv = q.shape[2], k.shape[2]
+    M, g = q.device_mesh.size(dims[0]), nq // nkv
+    if nq % M or (g % (nq // M) and (nq // M) % g):
+        return None
+    return dims[0]
+
+
 def _sharded_heads(q, k, v, mask, scale):
     """Attention over DTensors whose heads are sharded. DTensor cannot
     flatten a batched product's sharded non-leading dim (the heads of the
@@ -101,8 +118,12 @@ def _sharded_heads(q, k, v, mask, scale):
     DTensor's own propagation goes on (``None`` and the new q, k, v);
     else each rank attends its own batch rows and heads
     (``local_map``; query heads ``i*g..`` go with key head ``i``, so
-    blocks of both stay aligned)."""
-    from torch.distributed.tensor import Replicate, Shard
+    blocks of both stay aligned). Where the KV heads do not divide a
+    mesh dim that splits the query heads (``_query_split``), k and v
+    are whole on it, as the reference's GSPMD keeps them: each rank
+    attends its own query heads against the KV heads they group with,
+    and k's and v's gradients are partial sums over that dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = next(t.device_mesh for t in (q, k, v) if is_dtensor(t))
     rep = (Replicate(),) * mesh.ndim
@@ -114,11 +135,23 @@ def _sharded_heads(q, k, v, mask, scale):
     place = [Shard(0) if a == Shard(0) else Shard(2)
              if a == b == c == Shard(2) else Replicate()
              for a, b, c in zip(pq, pk, pv)]
+    place_q, grad_kv = place, place
+    qdim = _query_split(q, k, place, pq) if is_dtensor(q) else None
+    if qdim is not None:
+        place_q, grad_kv = list(place), list(place)
+        place_q[qdim], grad_kv[qdim] = Shard(2), Partial()
+        nl, g = q.shape[2] // mesh.size(qdim), q.shape[2] // k.shape[2]
+        lo, n = mesh.get_local_rank(qdim) * nl // g, max(1, nl // g)
+
+    def attend(q, k, v, mask, scale):
+        k, v = contiguous_grad(k), contiguous_grad(v)
+        if qdim is not None:             # the rank's query heads' KV heads
+            k, v = k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+        return _gqa_scores_softmax_out(contiguous_grad(q), k, v, mask, scale)
     return local_map(
-        lambda q, k, v, mask, scale: _gqa_scores_softmax_out(
-            contiguous_grad(q), contiguous_grad(k), contiguous_grad(v),
-            mask, scale), out_placements=place,
-        in_placements=(place, place, place, list(rep), None),
+        attend, out_placements=place_q,
+        in_placements=(place_q, place, place, list(rep), None),
+        in_grad_placements=(place_q, grad_kv, grad_kv, list(rep), None),
         device_mesh=mesh, redistribute_inputs=True)(
             q, k, v, mask, scale), None
 

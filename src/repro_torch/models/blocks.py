@@ -86,6 +86,17 @@ def _mlp_half(cfg, params, x):
     return x, aux
 
 
+def _mixer(cfg, kind, params, h, fn, *state):
+    """``fn(params, h, *state)``: a Mamba2 mixer split over its heads
+    where its weights split them (``ssm.mamba2_head_split``), as the
+    reference runs it; on DTensors elsewhere, and for the other
+    recurrent kinds, on each rank's batch rows with the weights gathered
+    (``batch_local``); plain tensors go straight through either."""
+    if kind == MAMBA2 and ssm.mamba2_head_split(params, cfg, h) is not None:
+        return fn(params, h, *state)
+    return batch_local(fn, params, h, *state)
+
+
 def block_apply_full(cfg, kind, params, x, positions, *, want_cache=False,
                      max_seq=None):
     """Full-sequence forward (train / prefill). Returns (x, cache, aux);
@@ -103,10 +114,8 @@ def block_apply_full(cfg, kind, params, x, positions, *, want_cache=False,
                                   device=x.device)
             prefill_into_cache(cache, k, v, positions, window=window)
     else:
-        out = batch_local(
-            lambda prm, h: _MIXERS[kind][1](prm, cfg, h,
-                                            return_state=want_cache),
-            params["mixer"], h)
+        out = _mixer(cfg, kind, params["mixer"], h, lambda prm, h: _MIXERS[
+            kind][1](prm, cfg, h, return_state=want_cache))
         out, cache = out if want_cache else (out, None)
     x, aux = _mlp_half(cfg, params, x + out)
     return x, cache, aux
@@ -119,9 +128,9 @@ def block_apply_step(cfg, kind, params, x, cache, pos):
         out, cache = attend_decode(params["attn"], cfg, h, cache, pos,
                                    window=_window(cfg, kind))
     else:
-        out, new = batch_local(
-            lambda prm, h, st: _MIXERS[kind][2](prm, cfg, h, st),
-            params["mixer"], h, cache)
+        out, new = _mixer(cfg, kind, params["mixer"], h,
+                          lambda prm, h, st: _MIXERS[kind][2](prm, cfg, h, st),
+                          cache)
         for name, leaf in new.items():
             cache[name].copy_(leaf)
     x, _ = _mlp_half(cfg, params, x + out)

@@ -89,27 +89,37 @@ def _expert_parallel(params, xe):
     of the mesh dims that split ``gate``'s experts) and batch rows, the
     weights' other splits gathered: DTensor cannot flatten the batch and
     sharded expert dims of a batched product in some torch versions.
-    A weight's local gradient comes from the rank's batch rows alone: a
-    partial sum over the mesh dims that split the rows."""
+    Where the experts do not divide a mesh dim that splits their d_ff
+    (the ``"expert_mlp"`` fallback: ``gate``/``up`` on dim 2, ``down`` on
+    dim 1), the d_ff stays split: ``gate``/``up`` are column-parallel,
+    ``down`` row-parallel, so the output, and ``xe``'s gradient, are
+    partial sums over that dim. A weight's local gradient comes from the
+    rank's batch rows alone: a partial sum over the mesh dims that split
+    the rows."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     ref = next(t for t in (xe, params["gate"]) if is_dtensor(t))
     mesh = ref.device_mesh
     rep = [Replicate()] * mesh.ndim
-    pw = params["gate"].placements if is_dtensor(params["gate"]) else rep
+    names = ("gate", "up", "down")
+    pg, pu, pd = (params[n].placements if is_dtensor(params[n]) else rep
+                  for n in names)
     px = xe.placements if is_dtensor(xe) else rep
-    ep = [p == Shard(0) for p in pw]
+    ep = [p == Shard(0) for p in pg]
+    fp = [g == u == Shard(2) and d == Shard(1) and x != Shard(0)
+          for g, u, d, x in zip(pg, pu, pd, px)]
     place_x = [Shard(1) if e else Shard(0) if p == Shard(0) else Replicate()
                for e, p in zip(ep, px)]
-    place_w = [Shard(0) if e else Replicate() for e in ep]
-    grad_w = [Partial() if x == Shard(0) else w
-              for x, w in zip(place_x, place_w)]
-    names = ("gate", "up", "down")
+    place_w = [[Shard(0) if e else Shard(dim) if f else Replicate()
+                for e, f in zip(ep, fp)] for dim in (2, 2, 1)]
+    grad_w = [[Partial() if x == Shard(0) else p
+               for x, p in zip(place_x, w)] for w in place_w]
+    place_y = [Partial() if f else p for f, p in zip(fp, place_x)]
     return local_map(
         lambda x, *w: _expert_ffn(
             dict(zip(names, map(contiguous_grad, w))), contiguous_grad(x)),
-        out_placements=place_x, in_placements=(place_x,) + (place_w,) * 3,
-        in_grad_placements=(place_x,) + (grad_w,) * 3,
+        out_placements=place_y, in_placements=(place_x, *place_w),
+        in_grad_placements=(place_y, *grad_w),
         device_mesh=mesh, redistribute_inputs=True)(
             xe, *(params[n] for n in names))
 

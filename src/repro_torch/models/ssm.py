@@ -31,11 +31,14 @@ into the caller's cache.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.models.common import remat, rmsnorm, silu
-from repro_torch.sharding.api import ParamSpec
+from repro_torch.sharding.api import ParamSpec, constrain, head_local, \
+    is_dtensor
 
 _MASKED = -1e30         # the reference's mask value, inside the exponent
 
@@ -117,6 +120,39 @@ def mamba2_specs(cfg) -> dict:
     }
 
 
+# each Mamba2 weight split along its head (or d_in) dim by the
+# reference's specs ("heads", "mlp"): that dim
+_HEAD_DIMS = {"wz": 1, "wx": 1, "wdt": 1, "dt_bias": 0, "A_log": 0, "D": 0,
+              "conv_w": 1, "norm": 0, "wo": 0}
+# ``head_local`` roles of the per-rank functions' common arguments: xh, z,
+# dt split over heads; B and C whole; conv_w, A_log and D weights
+_MIX_IN = (("heads", 2), ("heads", 2), ("heads", 2), ("whole", 0),
+           ("whole", 0), ("weight", 1), ("weight", 0), ("weight", 0))
+
+
+def mamba2_head_split(params, cfg, x):
+    """The mesh dim over which a Mamba2 mixer runs split over its heads,
+    as the reference's GSPMD runs it: the one mesh dim that splits each
+    weight of ``_HEAD_DIMS`` along that dim, where H is a multiple of
+    its size M (so ``d_in / M`` is whole heads), and ``x`` whole on it. None on plain tensors and elsewhere (the block then
+    runs the mixer under ``batch_local``)."""
+    if not is_dtensor(x) or not all(is_dtensor(params[n])
+                                    for n in _HEAD_DIMS):
+        return None
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    split = [[params[n].placements[i] == Shard(d)
+              for n, d in _HEAD_DIMS.items()] for i in range(mesh.ndim)]
+    dims = [i for i, s in enumerate(split) if all(s)]
+    if len(dims) != 1 or sum(map(any, split)) != 1:
+        return None
+    (i,) = dims
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    if H % mesh.size(i) or not x.placements[i].is_replicate():
+        return None
+    return i
+
+
 def _mamba2_inputs(params, cfg, x):
     """Project x: (B,L,d) -> z, xh (B,L,d_in) in x's dtype, B/C (B,L,N)
     and dt (B,L,H) in float32."""
@@ -162,39 +198,56 @@ def _ssd_chunk(state, xb, Bq, Cq, la, tri):
     return state, y_inter + y_intra
 
 
-def mamba2_train(params, cfg, x, return_state=False):
-    """Chunk-parallel SSD. x: (B,L,d) -> (B,L,d) [, final state]."""
-    B, L, d = x.shape
-    Q = _chunks(cfg, L)
-    nc = L // Q
-    z, xh, Bm, Cm, dt, H, P = _mamba2_inputs(params, cfg, x)
-    xh_raw = xh
-    xh = _causal_conv(xh, params["conv_w"].to(xh.dtype))
+def _mamba2_mix(xh, z, dt, Bm, Cm, conv_w, A_log, D, *, Q, P,
+                chunk_remat):
+    """The causal conv, the SSD chunk scan, the skip and the gate of a
+    whole sequence: (y (B,L,F) in z's dtype, the state after it
+    (B,H,P,N)). On a mesh it runs per rank (``head_local``) over the
+    rank's heads, F = H * P of them."""
+    B, L, F = xh.shape
+    H, nc = F // P, L // Q
+    xh = _causal_conv(xh, conv_w.to(xh.dtype))
     N = Bm.shape[-1]
-    A = -torch.exp(params["A_log"])                              # (H,) < 0
+    A = -torch.exp(A_log)                                        # (H,) < 0
     xhh = _f32(xh.reshape(B, nc, Q, H, P))
     dtc = dt.reshape(B, nc, Q, H)
     Bc = Bm.reshape(B, nc, Q, N)
     Cc = Cm.reshape(B, nc, Q, N)
     xbar = xhh * dtc[..., None]                                  # dt-weighted input
     lda = _cumsum(dtc * A, 2)                                    # (B,nc,Q,H)
-    tri = _chunk_mask(Q, x.device)
-    state = torch.zeros((B, H, P, N), dtype=xbar.dtype, device=x.device)
-    chunk = remat(_ssd_chunk, cfg.opt_chunk_remat)
+    tri = _chunk_mask(Q, xh.device)
+    state = torch.zeros((B, H, P, N), dtype=xbar.dtype, device=xh.device)
+    chunk = remat(_ssd_chunk, chunk_remat)
     ys = []
     for c in range(nc):
         state, y_c = chunk(state, xbar[:, c], Bc[:, c], Cc[:, c], lda[:, c],
                            tri)
         ys.append(y_c)
     y = torch.stack(ys, dim=1).reshape(B, L, H, P)
-    y = y + params["D"][None, None, :, None] * _f32(xh.reshape(B, L, H, P))
-    y = y.reshape(B, L, H * P).to(x.dtype)
-    y = y * silu(z)
+    y = y + D[None, None, :, None] * _f32(xh.reshape(B, L, H, P))
+    y = y.reshape(B, L, H * P).to(z.dtype)
+    return y * silu(z), state
+
+
+def mamba2_train(params, cfg, x, return_state=False):
+    """Chunk-parallel SSD. x: (B,L,d) -> (B,L,d) [, final state]."""
+    Q = _chunks(cfg, x.shape[1])
+    z, xh, Bm, Cm, dt, H, P = _mamba2_inputs(params, cfg, x)
+    mix = functools.partial(_mamba2_mix, Q=Q, P=P,
+                            chunk_remat=cfg.opt_chunk_remat)
+    args = (xh, z, dt, Bm, Cm, params["conv_w"], params["A_log"],
+            params["D"])
+    dim = mamba2_head_split(params, cfg, x)
+    if dim is None:
+        y, state = mix(*args)
+    else:
+        y, state = head_local(mix, dim, x, args, _MIX_IN,
+                              (("heads", 2), ("heads", 1)))
     y = rmsnorm(y, params["norm"], cfg.norm_eps)
-    out = _mm(y, params["wo"])
+    out = constrain(_mm(y, params["wo"]), "batch", None, "embed")
     if return_state:
         # conv cache: the last 3 *pre-conv* xh inputs (as mamba2_step uses)
-        return out, {"s": state, "conv": _f32(xh_raw[:, -3:])}
+        return out, {"s": state, "conv": _f32(xh[:, -3:])}
     return out
 
 
@@ -222,23 +275,39 @@ def mamba2_step(params, cfg, x, state):
             f"{state['conv'].shape[1]} inputs, not 3: decoding after a "
             "prompt of fewer than 3 tokens is not supported")
     z, xh, Bm, Cm, dt, H, P = _mamba2_inputs(params, cfg, x)
+    args = (xh, z, dt, Bm, Cm, params["conv_w"], params["A_log"],
+            params["D"], state["s"], state["conv"])
+    recur = functools.partial(_mamba2_recur, P=P)
+    dim = mamba2_head_split(params, cfg, x)
+    if dim is None:
+        y, s_new, new_conv = recur(*args)
+    else:
+        y, s_new, new_conv = head_local(
+            recur, dim, x, args, _MIX_IN + (("heads", 1), ("heads", 2)),
+            (("heads", 2), ("heads", 1), ("heads", 2)))
+    y = rmsnorm(y, params["norm"], cfg.norm_eps)
+    out = constrain(_mm(y, params["wo"]), "batch", None, "embed")
+    return out, {"s": s_new, "conv": new_conv}
+
+
+def _mamba2_recur(xh, z, dt, Bm, Cm, conv_w, A_log, D, s, conv, *, P):
+    """One token's conv, recurrence, skip and gate: (y (B,1,F) in z's
+    dtype, the new state, the new conv cache). On a mesh it runs per
+    rank over the rank's heads, as ``_mamba2_mix``."""
     xh = _f32(xh)
-    conv_in = torch.cat([state["conv"].to(xh.dtype), xh], dim=1)  # (B,4,F)
-    xh = silu((conv_in * params["conv_w"].to(xh.dtype)).sum(dim=1))[:, None]
-    new_conv = conv_in[:, 1:]
-    B_ = x.shape[0]
-    A = -torch.exp(params["A_log"])
+    conv_in = torch.cat([conv.to(xh.dtype), xh], dim=1)         # (B,4,F)
+    xh = silu((conv_in * conv_w.to(xh.dtype)).sum(dim=1))[:, None]
+    B_, H = xh.shape[0], xh.shape[-1] // P
+    A = -torch.exp(A_log)
     xhh = xh.reshape(B_, H, P)
     dt1 = dt[:, 0]                                               # (B,H)
     dA = torch.exp(dt1 * A)                                      # (B,H)
-    s_new = (state["s"] * dA[:, :, None, None]
+    s_new = (s * dA[:, :, None, None]
              + (dt1[:, :, None] * xhh)[..., None] * Bm[:, 0][:, None, None])
     y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], s_new)
-    y = y + params["D"][None, :, None] * xhh
-    y = y.reshape(B_, 1, H * P).to(x.dtype)
-    y = y * silu(z)
-    y = rmsnorm(y, params["norm"], cfg.norm_eps)
-    return _mm(y, params["wo"]), {"s": s_new, "conv": new_conv}
+    y = y + D[None, :, None] * xhh
+    y = y.reshape(B_, 1, H * P).to(z.dtype)
+    return y * silu(z), s_new, conv_in[:, 1:]
 
 
 # ---------------------------------------------------------------------------

@@ -458,6 +458,38 @@ def batch_local(fn, params, *args):
     return tree_map(wrap, out, torch.is_tensor)
 
 
+def head_local(fn, dim: int, ref, args, ins, outs):
+    """``fn(*args)`` on each rank's own batch rows (those of the mesh
+    dims that split the DTensor ``ref`` along its batch) and, on mesh
+    dim ``dim``, its own heads: what ``batch_local`` does without
+    gathering what the heads split. ``ins`` and ``outs`` give each
+    tensor of ``args`` and of ``fn``'s output tuple a ``(role, d)``:
+    ``"heads"``, batch-leading and split along its dim ``d`` on ``dim``;
+    ``"whole"``, batch-leading and whole on ``dim`` (its gradient a
+    partial sum there); ``"weight"``, split along ``d`` on ``dim`` and
+    whole over the batch split (its gradient a partial sum over it). A
+    plain tensor in ``args`` (alike on every rank) is placed first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ref.device_mesh
+    rows = [p == Shard(0) and i != dim for i, p in enumerate(ref.placements)]
+
+    def place(role, d, grad=False):
+        partial = Partial() if grad else Replicate()
+        return [(partial if role == "whole" else Shard(d)) if i == dim
+                else (partial if role == "weight" else Shard(0)) if r
+                else Replicate() for i, r in enumerate(rows)]
+    in_p = [place(*k) for k in ins]
+    args = [t if is_dtensor(t) else _place(t, mesh, p)
+            for t, p in zip(args, in_p)]
+    return local_map(
+        lambda *a: fn(*map(contiguous_grad, a)),
+        out_placements=tuple(place(*k) for k in outs),
+        in_placements=tuple(in_p),
+        in_grad_placements=tuple(place(*k, grad=True) for k in ins),
+        device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
 def _shard_window(dst: torch.Tensor, dim: int, src: torch.Tensor):
     """``(dst's local tensor, src's local tensor, lo, hi)`` for a write
     into the DTensor ``dst`` along ``dim``: ``src`` placed as ``dst`` is
@@ -635,7 +667,7 @@ def constrain(x, *axes, rules=None):
 __all__ = ["AbstractMesh", "DEFAULT_RULES", "DTYPES", "NamedSharding", "P",
            "ParamSpec", "PartitionSpec", "constrain", "device_put",
            "batch_local", "contiguous_grad", "distribute", "distribute_like",
-           "is_dtensor",
+           "head_local", "is_dtensor",
            "is_spec", "materialize", "mesh_shape",
            "num_params", "partition_spec", "reshape", "resolve_axis",
            "spec_leaves",

@@ -331,11 +331,11 @@ class _AllShapes(hlo_analysis.StepRecorder):
         super()._alloc(func, t)
 
 
-def _all_shapes(monkeypatch, mesh, arch, shape, opts=()):
+def _all_shapes(monkeypatch, mesh, arch, shape, opts=(), config=None):
     monkeypatch.setattr(dryrun, "StepRecorder", _AllShapes)
-    lowered, _, cfg = dryrun.lower_cell(arch, shape.name, mesh, opts=opts,
-                                        config=get_smoke_config(arch),
-                                        shape=shape)
+    lowered, _, cfg = dryrun.lower_cell(
+        arch, shape.name, mesh, opts=opts,
+        config=config or get_smoke_config(arch), shape=shape)
     return lowered.compile().recorder.shapes, cfg
 
 
@@ -356,6 +356,61 @@ def test_moe_dispatch_holds_only_the_ranks_rows(world8, monkeypatch):
         assert whole not in seen, whole
     assert seen.get((b * E * C, d), 0) > 0       # the rank's buffer
     assert seen.get((b, S * k, d), 0) > 0        # its token copies
+
+
+def test_query_heads_split_where_kv_heads_do_not_divide(world8,
+                                                       monkeypatch):
+    """chameleon's smoke train cell on ``(2, 4)``: its 2 KV heads do not
+    divide "model", its 4 query heads do. No allocation holds the scores
+    of all query heads, (b, 2, 2, S, S); each rank's are those of its
+    one query head against the KV head it groups with, (b, 1, 1, S, S)."""
+    shape = ShapeConfig("train_4k", "train", 40, 16)
+    seen, cfg = _all_shapes(monkeypatch, world8, "chameleon-34b", shape)
+    b, S = shape.global_batch // 2, shape.seq_len
+    nkv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    assert (nkv, g, cfg.num_heads % 4) == (2, 2, 0)
+    assert (b, nkv, g, S, S) not in seen
+    assert (2 * b, nkv, g, S, S) not in seen
+    assert seen.get((b, 1, 1, S, S), 0) > 0
+
+
+def test_expert_dff_split_where_experts_do_not_divide(world8, monkeypatch):
+    """mixtral's smoke train cell with 6 experts on ``(2, 4)`` (the
+    ``"expert_mlp"`` fallback): no expert hidden state holds the whole
+    d_ff, (b, E, C, d_ff); each rank's holds its d_ff / 4."""
+    from repro_torch.configs import scaled
+    from repro_torch.models.moe import capacity
+    cfg = scaled(get_smoke_config("mixtral-8x7b"), num_experts=6)
+    shape = ShapeConfig("train_4k", "train", 24, 10)
+    seen, cfg = _all_shapes(monkeypatch, world8, "mixtral-8x7b", shape,
+                            config=cfg)
+    b, E, C, f = (shape.global_batch // 2, cfg.num_experts,
+                  capacity(cfg, shape.seq_len), cfg.d_ff)
+    assert len({b, E, C, f, f // 4, cfg.d_model}) == 6
+    for whole in [(b, E, C, f), (2 * b, E, C, f), (b * E * C, f)]:
+        assert whole not in seen, whole
+    assert seen.get((b, E, C, f // 4), 0) > 0
+
+
+def test_mamba2_runs_split_over_its_heads(world8, monkeypatch):
+    """zamba2's smoke cells on ``(2, 4)``, its 8 SSD heads 2 a rank: the
+    train cell holds no chunk term of all heads, (b, Q, Q, H), only the
+    rank's (b, Q, Q, H/4); the decode cell no state of all heads, (b, H,
+    P, N), only the rank's (b, H/4, P, N)."""
+    train = ShapeConfig("train_4k", "train", 32, 6)
+    seen, cfg = _all_shapes(monkeypatch, world8, "zamba2-2.7b", train)
+    b, Q = train.global_batch // 2, cfg.ssm_chunk
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    assert len({b, Q, H, H // 4}) == 4 and train.seq_len == 2 * Q
+    assert (b, Q, Q, H) not in seen and (2 * b, Q, Q, H) not in seen
+    assert seen.get((b, Q, Q, H // 4), 0) > 0
+    decode = ShapeConfig("decode_32k", "decode", 48, 10)
+    seen, _ = _all_shapes(monkeypatch, world8, "zamba2-2.7b", decode)
+    b = decode.global_batch // 2
+    assert len({b, H, H // 4, P}) == 4 and P == N
+    assert (b, H, P, N) not in seen and (2 * b, H, P, N) not in seen
+    assert seen.get((b, H // 4, P, N), 0) > 0
 
 
 def test_prefill_cell_holds_no_whole_embedding_table(world8, monkeypatch):
