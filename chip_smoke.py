@@ -172,9 +172,14 @@ Phases, each printing one JSON line:
    seq_shard --opt attn_remat`` (the record names both), of
    chameleon-34b ``train_4k`` with the same levers (it fits 80 GB, and
    no allocation at its peak holds all 64 query heads: each rank attends
-   its own against its 8 whole KV heads) and of zamba2-2.7b
+   its own against its 8 whole KV heads), of zamba2-2.7b
    ``decode_32k`` (its Mamba2 mixers split over their heads; the line
-   gives its collective bytes), each in a
+   gives its collective bytes) and of zamba2-2.7b ``long_500k`` on 16 x
+   16 and 2 x 16 x 16 (its shared attention's 524,288-slot cache split
+   along the slots and the KV heads stays split: fewer than
+   ``MESH_LONG_COLLECTIVE_GB`` of collectives a token; the line gives
+   the peak, the collective bytes and the dominant roofline term), each
+   in a
    subprocess started once (a) has ended (so
    that (a)'s host-bound steps have the host to themselves), over a
    fake world (no device touched): peak bytes a device against 80 GB
@@ -316,7 +321,12 @@ MESH_DRYRUN = ((LM_ARCH, "train_4k", "single", ()),
                ("granite-moe-1b-a400m", "train_4k", "single", ()),
                ("internlm2-20b", "train_4k", "single", MESH_LEVERS),
                ("chameleon-34b", "train_4k", "single", MESH_LEVERS),
-               ("zamba2-2.7b", "decode_32k", "single", ()))
+               ("zamba2-2.7b", "decode_32k", "single", ()),
+               ("zamba2-2.7b", "long_500k", "single", ()),
+               ("zamba2-2.7b", "long_500k", "multi", ()))
+# a long_500k decode keeps its cache split along the slots and the heads:
+# fewer collective GB a token than this (the cache gathered: 3.62)
+MESH_LONG_COLLECTIVE_GB = 1.0
 # (c) also: gemma3-12b's local layer 0 at full width prefilled with
 # MESH_RING_PROMPT tokens (past its 1024 window) into a cache split along
 # its slots, and TokenPipeline(shardings=) batches of MESH_SHAPE
@@ -3035,9 +3045,10 @@ def whole_query_heads(arch, entries) -> list:
 def mesh_dryruns(dry, out, failures) -> list:
     """(b) Wait for each dry-run subprocess and read its record; a MoE
     cell's allocations live at the peak must hold no whole dispatch
-    buffer, a cell run with levers must name them, and chameleon's
-    lever cell must fit 80 GB with no allocation of all its query heads
-    at the peak."""
+    buffer, a cell run with levers must name them, chameleon's lever
+    cell must fit 80 GB with no allocation of all its query heads at the
+    peak, and a ``long_500k`` decode must move fewer than
+    ``MESH_LONG_COLLECTIVE_GB`` a token."""
     from repro_torch.configs import get_config
     lines = []
     for (arch, shape, mesh, opts), t0, proc in dry:
@@ -3070,7 +3081,7 @@ def mesh_dryruns(dry, out, failures) -> list:
                 collective_gb=rec["collectives"]["total"] / 1e9,
                 model_flops_per_device=rec["model_flops_per_device"],
                 useful_flops_ratio=rec["useful_flops_ratio"], roofline=r,
-                record_opts=rec["opts"])
+                dominant=r["dominant"], record_opts=rec["opts"])
             if rec["opts"] != list(opts):
                 failures.append(f"b: {arch} {shape} {mesh}: record names "
                                 f"{rec['opts']}, not {list(opts)}")
@@ -3082,6 +3093,11 @@ def mesh_dryruns(dry, out, failures) -> list:
                 if held:
                     failures.append(f"b: {arch} {shape} {mesh}: whole MoE "
                                     f"buffers at the peak: {held}")
+            if (shape == "long_500k"
+                    and line["collective_gb"] >= MESH_LONG_COLLECTIVE_GB):
+                failures.append(f"b: {arch} {shape} {mesh}: "
+                                f"{line['collective_gb']} GB of collectives "
+                                f"a token")
             if arch == "chameleon-34b":
                 held = whole_query_heads(arch, mem["temp_at_peak"])
                 line["whole_query_heads_at_peak"] = held

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import apply_rope, remat
-from repro_torch.sharding.api import ParamSpec, constrain, \
-    contiguous_grad, distribute_like, gather_dim, is_dtensor, reshape, \
+from repro_torch.sharding.api import ParamSpec, all_reduce, constrain, \
+    contiguous_grad, distribute_like, is_dtensor, reshape, shards_dim, \
     write_index
 
 Q_CHUNK = 1024  # q-chunk length above which the queries go in blocks
@@ -111,15 +111,14 @@ def _query_split(q, k, place, pq):
 
 
 def _sharded_heads(q, k, v, mask, scale):
-    """Attention over DTensors whose heads are sharded. DTensor cannot
-    flatten a batched product's sharded non-leading dim (the heads of the
-    5-D scores, in some torch versions), so: where the keys are split
-    along the sequence (a decode cache), the heads are gathered and
-    DTensor's own propagation goes on (``None`` and the new q, k, v);
-    else each rank attends its own batch rows and heads
+    """Attention over DTensors whose heads are sharded (k and v whole
+    along the sequence). DTensor cannot flatten a batched product's
+    sharded non-leading dim (the heads of the 5-D scores, in some torch
+    versions), so each rank attends its own batch rows and heads
     (``local_map``; query heads ``i*g..`` go with key head ``i``, so
-    blocks of both stay aligned). Where the KV heads do not divide a
-    mesh dim that splits the query heads (``_query_split``), k and v
+    blocks of both stay aligned); with no head sharded, ``None`` and q,
+    k, v for DTensor's own propagation. Where the KV heads do not divide
+    a mesh dim that splits the query heads (``_query_split``), k and v
     are whole on it, as the reference's GSPMD keeps them: each rank
     attends its own query heads against the KV heads they group with,
     and k's and v's gradients are partial sums over that dim."""
@@ -130,8 +129,6 @@ def _sharded_heads(q, k, v, mask, scale):
     pq, pk, pv = (t.placements if is_dtensor(t) else rep for t in (q, k, v))
     if not any(Shard(2) in p for p in (pq, pk, pv)):
         return None, (q, k, v)
-    if any(Shard(1) in p for p in (pk, pv)):
-        return None, tuple(gather_dim(t, 2) for t in (q, k, v))
     place = [Shard(0) if a == Shard(0) else Shard(2)
              if a == b == c == Shard(2) else Replicate()
              for a, b, c in zip(pq, pk, pv)]
@@ -156,8 +153,101 @@ def _sharded_heads(q, k, v, mask, scale):
             q, k, v, mask, scale), None
 
 
+def _slot_role(pq, pkv) -> str:
+    """The role of a mesh dim in ``_slot_split``, from q's placement and
+    k's (and v's) on it: the cache's split decides (it never moves),
+    then q's batch rows."""
+    from torch.distributed.tensor import Shard
+    role = {Shard(0): "batch", Shard(1): "slots", Shard(2): "heads",
+            Shard(3): "head_dim"}.get(pkv)
+    return role or ("batch" if pq == Shard(0) else "whole")
+
+
+def _slot_placements(role: str) -> tuple:
+    """q's, k's and v's, and the output's placements on a mesh dim of
+    ``role``: the output is a partial sum over the slots."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if role == "slots":
+        return Replicate(), Shard(1), Partial()
+    if role == "whole":
+        return (Replicate(),) * 3
+    return (Shard({"batch": 0, "heads": 2, "head_dim": 3}[role]),) * 3
+
+
+def _slot_split(q, k, v, mask, scale):
+    """Decode attention over k and v split along their slots (``Shard(1)``
+    on one or more mesh dims: a cache placed by ``sharding.caches``), as
+    the reference's GSPMD partitions it: nothing of the cache moves.
+    Each mesh dim takes a role (``_slot_role``): on a slot-split dim
+    each rank attends to its own slots with q whole (one token); on a
+    head-split dim (k and v ``Shard(2)``) each rank keeps its own heads,
+    query heads ``i*g..`` with KV head ``i``; a batch split stays; on a
+    head_dim split (the ``head_dim`` fallback of the cache's KV heads)
+    each rank's partial scores are summed over it; anything else is
+    whole. A dim that splits both q's heads and the slots (``decode_32k``:
+    ``cache_seq`` and ``heads`` both on ``model``) holds q whole.
+
+    The reference's order of operations, over the rank's slots: float32
+    scores times ``scale``, -1e30 where masked, the max all-reduced over
+    the slot-split dims, ``exp(s - max)``, its sum all-reduced likewise,
+    the probabilities normalised and cast to ``v``'s dtype, the PV
+    product in ``v``'s dtype (its accumulation float32) and its partial
+    outputs summed in float32 over the slot-split dims (``Partial``,
+    redistributed to q's placements), then one cast to ``v``'s dtype.
+    A rank whose slots are all masked gives them zero weight. ``mask``
+    (a decode's: (1, 1, 1, 1, W)) is whole; each rank takes its slots'
+    part from its offset. For decode: no gradient flows through the
+    collectives."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    q, v = (t if is_dtensor(t) else DTensor.from_local(
+        t, mesh, rep, run_check=False) for t in (q, v))
+    roles = [_slot_role(a, b) for a, b in zip(q.placements, k.placements)]
+    place_q, place_kv, place_out = (
+        list(p) for p in zip(*map(_slot_placements, roles)))
+    groups = {r: [mesh.get_group(i) for i, x in enumerate(roles) if x == r]
+              for r in ("slots", "head_dim")}
+    shape, offset = compute_local_shape_and_global_offset(k.shape, mesh,
+                                                          place_kv)
+    lo, n = offset[1], shape[1]
+
+    def attend(q, k, v, mask):
+        mask = mask[..., lo:lo + n]
+        B, Sq, nq, hd = q.shape
+        nkv = k.shape[2]
+        g = nq // nkv
+        dt = torch.promote_types(q.dtype, k.dtype)
+        qg = q.reshape(B, Sq, nkv, g, hd).permute(0, 2, 3, 1, 4).reshape(
+            B, nkv, g * Sq, hd)               # no copy of k for each of g
+        s = torch.matmul(qg.to(dt), k.permute(0, 2, 3, 1).to(dt)).float()
+        s = all_reduce(s, "sum", groups["head_dim"]).reshape(
+            B, nkv, g, Sq, -1) * scale
+        s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype,
+                                              device=s.device))
+        e = torch.exp(s - all_reduce(s.amax(-1, keepdim=True), "max",
+                                     groups["slots"]))
+        p = (e / all_reduce(e.sum(-1, keepdim=True), "sum",
+                            groups["slots"])).to(v.dtype)
+        # in v's dtype: a float32 copy of v would double the largest
+        # temporary of a decode step
+        out = torch.matmul(p.reshape(B, nkv, g * Sq, -1),
+                           v.permute(0, 2, 1, 3)).float()
+        return out.reshape(B, nkv, g, Sq, -1).permute(0, 3, 1, 2, 4).reshape(
+            B, Sq, nq, -1)
+    out = local_map(attend, out_placements=place_out,
+                    in_placements=(place_q, place_kv, place_kv, rep),
+                    device_mesh=mesh, redistribute_inputs=True)(q, k, v, mask)
+    return out.redistribute(mesh, q.placements).to(v.dtype)
+
+
 def _gqa_scores_softmax_out(q, k, v, mask, scale):
     """q: (B,Sq,nq,hd) k/v: (B,Sk,nkv,hd) mask: broadcastable (B,n,g,Sq,Sk)."""
+    if shards_dim(k, 1):                 # a cache split along its slots
+        return _slot_split(q, k, v, mask, scale)
     if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
         out, qkv = _sharded_heads(q, k, v, mask, scale)
         if out is not None:

@@ -41,7 +41,7 @@ from repro_torch.models.attention import attend_decode, attend_full, \
     attention_specs, _proj
 from repro_torch.models.common import cdtype, mlp, mlp_specs, remat, \
     rmsnorm, rmsnorm_spec, sinusoidal_pos
-from repro_torch.sharding.api import ParamSpec, constrain, \
+from repro_torch.sharding.api import ParamSpec, all_reduce, constrain, \
     contiguous_grad, gather_dim, is_dtensor, shards_dim, tree_map, \
     tree_map_specs
 
@@ -340,18 +340,11 @@ class _SumOverShards(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, groups):
-        return _all_reduce(t, "sum", groups)
+        return all_reduce(t, "sum", groups)
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
-
-
-def _all_reduce(t, op, groups):
-    from torch.distributed import _functional_collectives as funcol
-    for g in groups:
-        t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
-    return t
 
 
 def _vocab_sharded_ce(logits, labels):
@@ -378,7 +371,7 @@ def _vocab_sharded_ce(logits, labels):
         [Shard(0) if p == Shard(vd) else Replicate() for p in place],
         src_data_rank=None).to_local()
     xf = x.float()
-    m = _all_reduce(xf.detach().amax(-1), "max", groups)
+    m = all_reduce(xf.detach().amax(-1), "max", groups)
     sum_exp = _SumOverShards.apply((xf - m[..., None]).exp().sum(-1), groups)
     label_logit = _SumOverShards.apply(torch.where(
         lab.long()[..., None] == vocab, x,

@@ -552,6 +552,25 @@ def write_index(dst: torch.Tensor, dim: int, idx, src: torch.Tensor
         src_local[lead + (mine,)].to(dst.dtype)
 
 
+def all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` (a plain tensor: a rank's local values) reduced by ``op``
+    (``"sum"``, ``"max"``, ...) over each process group of ``groups`` in
+    turn, a functional collective waited on; ``t`` itself for none."""
+    from torch.distributed import _functional_collectives as funcol
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+    return t
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` of the process group ``group``, stacked along a
+    new leading dim in the group's rank order."""
+    from torch.distributed import _functional_collectives as funcol
+    # all_gather_single in newer torch versions, all_gather_tensor before
+    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+    return funcol.wait_tensor(gather(t, 0, group)).reshape(-1, *t.shape)
+
+
 def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` with its shards along ``dim`` gathered (its other placements
     kept); a plain tensor as it is."""
@@ -665,7 +684,8 @@ def constrain(x, *axes, rules=None):
 
 
 __all__ = ["AbstractMesh", "DEFAULT_RULES", "DTYPES", "NamedSharding", "P",
-           "ParamSpec", "PartitionSpec", "constrain", "device_put",
+           "ParamSpec", "PartitionSpec", "all_gather", "all_reduce",
+           "constrain", "device_put",
            "batch_local", "contiguous_grad", "distribute", "distribute_like",
            "head_local", "is_dtensor",
            "is_spec", "materialize", "mesh_shape",

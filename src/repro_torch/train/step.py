@@ -9,8 +9,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import lm_decode_step, lm_loss, lm_prefill
-from repro_torch.sharding.api import gather_dim, is_dtensor, tree_leaves, \
-    tree_map, tree_unflatten
+from repro_torch.sharding.api import all_gather, is_dtensor, shards_dim, \
+    tree_leaves, tree_map, tree_unflatten
 from repro_torch.train.optimizer import AdamW
 
 
@@ -67,6 +67,40 @@ def make_prefill_step(cfg, max_seq: int):
     return prefill_step
 
 
+def _greedy_token(logits):
+    """The index of each row's largest logit, ``(B, V) -> (B,)``, the
+    lowest one among equal maxima: ``jnp.argmax``'s. Plain logits and
+    DTensor logits whole along the vocab take ``torch.argmax``. Logits
+    split along the vocab stay split (DTensor's own argmax of vocab
+    shards is unreliable in some torch versions): each rank takes its
+    shard's largest logit and its first index, offset by the shard's
+    start; the (max, index) pairs of the ranks are gathered over each
+    vocab-split mesh dim and the first of the largest kept."""
+    if not shards_dim(logits, -1):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, vd, place = logits.device_mesh, logits.ndim - 1, logits.placements
+    x = logits.to_local()
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                      place)
+    idx = torch.argmax(x, dim=-1, keepdim=True)
+    # float64 holds both a bf16 / float32 logit and an index exactly
+    best = torch.cat([x.gather(-1, idx).double(),
+                      (idx + offset[vd]).double()], dim=-1)       # (b, 2)
+    for i, p in enumerate(place):
+        if p == Shard(vd):
+            pairs = all_gather(best, mesh.get_group(i))           # (n, b, 2)
+            top = pairs[..., 0].amax(0)
+            first = torch.where(pairs[..., 0] == top, pairs[..., 1],
+                                torch.inf).amin(0)
+            best = torch.stack([top, first], dim=-1)
+    rows = [Replicate() if p == Shard(vd) else p for p in place]
+    return DTensor.from_local(best[..., 1].long(), mesh, rows,
+                              run_check=False)
+
+
 def make_decode_step(cfg, sample: bool = False):
     """Greedy decoding; ``sample`` is accepted and unused, as in the
     reference."""
@@ -74,9 +108,7 @@ def make_decode_step(cfg, sample: bool = False):
         """One-token decode for a running batch; greedy next token
         ``(B, 1)`` int32. ``caches`` is updated in place and returned."""
         caches, logits = lm_decode_step(cfg, params, caches, tokens, pos)
-        # the argmax of vocab shards is unreliable in some torch versions
-        next_tok = torch.argmax(gather_dim(logits, -1), dim=-1).to(
-            torch.int32)[:, None]
+        next_tok = _greedy_token(logits).to(torch.int32)[:, None]
         return caches, next_tok, logits
     return serve_step
 

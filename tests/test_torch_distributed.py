@@ -18,7 +18,9 @@ the same ranks it checks the paths that keep split what the reference
 keeps split where "model" divides neither the KV heads nor the
 experts: chameleon's query heads, mixtral's expert d_ff (6 experts),
 zamba2's SSD heads, and a zamba2 prefill and decode over caches split
-on heads. A second world of 2 ranks restores it onto ``(1, 2)``
+on heads. On both meshes it runs greedy decode steps over caches split
+along their slots and heads (zamba2, gemma3, an int8 cache) and the
+greedy token of logits split along the vocab with ties. A second world of 2 ranks restores it onto ``(1, 2)``
 (elastic resharding), and restores a file the reference wrote. Every
 rank runs in a subprocess with a time limit of its own: a hung rank
 fails its test."""
@@ -403,6 +405,89 @@ results["zamba2_decode_1x4"] = {
     "kept": before == [placed_like(x) for x in tree_leaves(c2, is_leaf=torch.is_tensor)],
     "conv_s_placements": [before[i] for i in mamba[:2]]}
 
+# decode over caches split along their slots (each step make_decode_step's
+# greedy token too), held to one device: batch 1 on (2, 2), the long_500k
+# layout ("longseq" puts the slots on "data", the KV heads on "model"),
+# and batch 4 on (1, 4), the decode_32k layout ("cache_seq" puts the
+# slots on "model", which splits the query heads too); zamba2's shared
+# attention, gemma3's rings (window 16) and global layer, one int8 case.
+# On (1, 4) a rank's slots are all empty or past the position at first
+from repro_torch.train.step import _greedy_token, make_decode_step
+SLOT_CASES = {"zamba2_2x2_b1": ("zamba2-2.7b", mesh, 1, False, 16),
+              "zamba2_1x4_b4": ("zamba2-2.7b", mesh14, 4, False, 16),
+              "gemma3_2x2_b1": ("gemma3-12b", mesh, 1, False, 10),
+              "gemma3_1x4_b4": ("gemma3-12b", mesh14, 4, False, 10),
+              "gemma3_2x2_b1_int8": ("gemma3-12b", mesh, 1, True, 10)}
+
+def slots_written(t):          # a slot of a (reps, B, W, ...) leaf holds a write
+    return (t.float().abs().sum(dim=[d for d in range(t.ndim) if d != 2]) > 0).tolist()
+
+for name, (arch, m, B, int8, prompt) in SLOT_CASES.items():
+    cfg_c = scaled(get_smoke_config(arch), dtype="float32", opt_kv_int8=int8)
+    sc = lm_specs(cfg_c)
+    pc = materialize(sc, torch.Generator().manual_seed(19), "cpu")
+    toks = batch_of(cfg_c, B, prompt + 4, 20)["tokens"]
+    c1, _ = lm_prefill(cfg_c, pc, {"tokens": toks[:, :prompt]}, max_seq=24)
+    step_c = make_decode_step(cfg_c)
+    with use_mesh(m):
+        pcs = device_put(pc, spec_shardings(sc, m))
+        c2 = device_put(tree_map(torch.clone, c1, is_leaf=torch.is_tensor),
+                        cache_shardings(c1, m, B))
+    before = [placed_like(x) for x in tree_leaves(c2, is_leaf=torch.is_tensor)]
+    line = {"logits_rel": 0.0, "finite": True, "tokens": [], "tokens_mesh": [],
+            "margins": [], "logit_diffs": [], "greedy_exact": True}
+    for i in range(prompt, prompt + 4):
+        tok = toks[:, i:i + 1]
+        _, t1, l1 = step_c(pc, c1, tok, i)
+        with use_mesh(m):
+            _, t2, l2 = step_c(pcs, c2, distribute(tok, NamedSharding(m, P("data" if B > 1 else None))), i)
+        l2w, t2w = whole(l2), whole(t2)
+        line["logits_rel"] = max(line["logits_rel"], float((l1 - l2w).abs().max() / l1.abs().max()))
+        line["finite"] &= bool(torch.isfinite(l2w).all())
+        line["greedy_exact"] &= torch.equal(t2w[:, 0].long(), torch.argmax(l2w, -1))
+        top2 = l1.topk(2, dim=-1).values
+        line["tokens"].append(t1[:, 0].tolist())
+        line["tokens_mesh"].append(t2w[:, 0].tolist())
+        line["margins"].append((top2[:, 0] - top2[:, 1]).tolist())
+        line["logit_diffs"].append((l1 - l2w).abs().amax(-1).tolist())
+    # each rank's slots of every KV leaf written where one device's are
+    bad, attn = 0, []
+    for (path, x1), x2 in zip(tree_flatten_with_path(c1, is_leaf=torch.is_tensor),
+                              tree_leaves(c2, is_leaf=torch.is_tensor)):
+        if path[-1] not in ("k", "v", "k_scale", "v_scale"):
+            continue
+        shape, offset = compute_local_shape_and_global_offset(x2.shape, x2.device_mesh,
+                                                              x2.placements)
+        want = x1[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        bad += int(slots_written(x2.to_local()) != slots_written(want))
+        attn.append(placed_like(x2))
+    t = torch.tensor([bad])
+    dist.all_reduce(t)
+    line.update(written_mismatches=int(t), kv_placements=attn, cache_rel=worst(c1, c2),
+                kept=before == [placed_like(x) for x in tree_leaves(c2, is_leaf=torch.is_tensor)],
+                pos_equal=all(torch.equal(a, whole(b)) for (p, a), b in zip(
+                    tree_flatten_with_path(c1, is_leaf=torch.is_tensor),
+                    tree_leaves(c2, is_leaf=torch.is_tensor)) if p[-1] == "pos"))
+    results["slot_decode_" + name] = line
+
+# greedy tokens of float32 logits split along the vocab, equal maxima on
+# two vocab shards (and on one, and everywhere): rank 0 keeps the array
+# for the test to hold to jnp.argmax
+ties = np.random.default_rng(21).standard_normal((4, 64)).astype(np.float32)
+ties[0, [40, 5]] = 9.0
+ties[1, [33, 60]] = 9.0
+ties[2, [63, 0, 31]] = 9.0
+ties[3] = 1.0
+argmax = {"logits": ties.tolist(),
+          "plain": _greedy_token(torch.from_numpy(ties)).tolist(),
+          "torch": torch.argmax(torch.from_numpy(ties), dim=-1).tolist()}
+for m, spec in ((mesh, P("data", "model")), (mesh14, P(None, "model"))):
+    with use_mesh(m):
+        got = _greedy_token(distribute(torch.from_numpy(ties), NamedSharding(m, spec)))
+    argmax["x".join(map(str, m.shape))] = {"tokens": whole(got).tolist(),
+                                           "placements": placed_like(got)}
+results["argmax_ties"] = argmax
+
 # a sharded checkpoint for the elastic restore (qwen2.5's smoke config)
 cfg_q = get_smoke_config("qwen2.5-32b")
 sq = lm_specs(cfg_q)
@@ -600,8 +685,9 @@ def test_decode_over_slot_sharded_caches_matches_one_device(worlds, arch):
     # another order can round to the neighbouring bf16 value (2**-8 to
     # 2**-7 apart, relative), and a later layer's k/v comes from inputs
     # that already differ: measured 5.4e-3 (smollm, 3 layers) and 1.6e-2
-    # (gemma3, 6) on the caches, 9.3e-3 and 1.5e-2 on the logits. A lost
-    # write leaves a zero slot (checked exactly above).
+    # (gemma3, 6) on the caches, 1.3e-2 and 1.5e-2 on the logits (9.3e-3
+    # and 1.5e-2 when the softmax gathered the slots). A lost write
+    # leaves a zero slot (checked exactly above).
     assert got["cache_rel"] <= 4 * 2.0 ** -7
     assert got["logits_rel"] <= 4e-2
 
@@ -656,6 +742,62 @@ def test_zamba2_prefill_and_decode_keep_the_heads_split(worlds):
     assert got["prefill_rel"] <= 1e-3, got
     assert got["cache_rel"] <= 4 * 2.0 ** -7, got
     assert got["logits_rel"] <= 4e-2, got
+
+
+SLOT_CASES = ["zamba2_2x2_b1", "zamba2_1x4_b4", "gemma3_2x2_b1",
+              "gemma3_1x4_b4", "gemma3_2x2_b1_int8"]
+
+
+@pytest.mark.parametrize("case", SLOT_CASES)
+def test_decode_over_slot_split_caches_keeps_slots_and_heads_split(worlds,
+                                                                   case):
+    """A float32 smoke config prefilled on one device, its caches placed
+    by ``cache_shardings``, then 4 steps of ``make_decode_step``: batch 1
+    on ``(2, 2)`` (the slots on "data", the KV heads on "model": the
+    ``long_500k`` layout) and batch 4 on ``(1, 4)`` (the slots on
+    "model", which splits the query heads too: ``decode_32k``); zamba2's
+    shared attention, gemma3's rings and global layer, one int8 cache.
+    Every KV leaf keeps its placements, each rank's slots are written
+    where one device's are and ``pos`` is equal. The bounds of the
+    slot-sharded decode test above: caches within ``4 * 2**-7`` and
+    logits within 4e-2 of one device; measured 5.5e-4 / 3.1e-6 / 1.2e-2
+    / 2.0e-2 / 2.4e-2 (int8: three int8 steps in 127) on the caches and
+    2.9e-3 / 2.5e-3 / 1.2e-2 / 1.9e-2 / 1.1e-2 on the logits, in the
+    order of ``SLOT_CASES``. The greedy token is the argmax of the mesh's
+    own logits exactly, and one device's wherever one device's top-two
+    margin is more than twice the row's largest logit difference (a
+    rounding cannot flip it); gemma3 on ``(1, 4)`` flips one near tie
+    (margin 2.5e-4)."""
+    got = worlds[0]["slot_decode_" + case]
+    want = ["S(2)", "S(3)"] if "_2x2_" in case else ["R", "S(2)"]
+    assert got["kv_placements"] and all(p == want
+                                        for p in got["kv_placements"])
+    assert got["kept"] and got["pos_equal"]
+    assert got["written_mismatches"] == 0
+    assert got["finite"] and got["greedy_exact"]
+    assert got["cache_rel"] <= 4 * 2.0 ** -7, got["cache_rel"]
+    assert got["logits_rel"] <= 4e-2, got["logits_rel"]
+    rows = zip(*(np.ravel(got[k]) for k in ("tokens", "tokens_mesh",
+                                             "margins", "logit_diffs")))
+    for t1, t2, margin, diff in rows:
+        assert t1 == t2 or margin <= 2 * diff, (t1, t2, margin, diff)
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_greedy_token_over_vocab_shards_takes_the_lowest_index(worlds, mesh):
+    """Float32 logits split along the vocab over "model" (2 and 4
+    shards), with equal maxima on two shards, on one shard and on every
+    entry: the greedy token is ``jnp.argmax``'s on the same array, the
+    lowest index, and the batch split stays; plain logits take
+    ``torch.argmax``'s answer."""
+    got = worlds[0]["argmax_ties"]
+    logits = np.asarray(got["logits"], dtype=np.float32)
+    want = np.asarray(jax.numpy.argmax(logits, axis=-1)).tolist()
+    assert want == [5, 33, 0, 0]
+    assert got[mesh]["tokens"] == want
+    assert got[mesh]["placements"] == (["S(0)", "R"] if mesh == "2x2"
+                                       else ["R", "R"])
+    assert got["plain"] == got["torch"] == want
 
 
 def test_token_pipeline_places_batches_over_the_mesh(worlds):

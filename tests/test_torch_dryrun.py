@@ -19,6 +19,8 @@ local program of rank 0.
   q-chunk of probabilities, ``chunk_remat`` lowers the peak.
 - MoE dispatch and combine hold only the rank's batch rows, and a
   prefill's embedding lookup no whole table.
+- A batch-1 decode over a cache split along its slots gathers neither
+  the cache nor its scores, and its greedy token no logits.
 - ``StepRecorder`` keeps what is live at the peak, collectives' outputs
   included; a sharded train cell's peak holds no logits whole along
   the vocab.
@@ -47,7 +49,8 @@ from repro_torch.launch import dryrun, hlo_analysis
 from repro_torch.models import lm_loss, lm_specs
 from repro_torch.models.lm import padded_vocab
 from repro_torch.sharding.api import NamedSharding, P, distribute, \
-    sharding_of, spec_shapes, tree_leaves, tree_map, use_mesh
+    gather_dim, reshape, sharding_of, spec_shapes, tree_leaves, tree_map, \
+    use_mesh
 
 SMOKE_TRAIN = ShapeConfig("train_4k", "train", 32, 8)
 # the reference's src/repro/launch/dryrun.py:44 (importing that module
@@ -320,23 +323,32 @@ def test_port_levers_apply(world8):
 
 
 class _AllShapes(hlo_analysis.StepRecorder):
-    """A recorder that also counts every allocation's shape."""
+    """A recorder that also counts every allocation's shape, and keeps
+    the (op, shape, dtype) of each."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.shapes = {}
+        self.made = set()
 
     def _alloc(self, func, t):
         self.shapes[tuple(t.shape)] = self.shapes.get(tuple(t.shape), 0) + 1
+        self.made.add((str(func), tuple(t.shape), t.dtype))
         super()._alloc(func, t)
 
 
-def _all_shapes(monkeypatch, mesh, arch, shape, opts=(), config=None):
+def _recorded(monkeypatch, mesh, arch, shape, opts=(), config=None):
+    """A cell traced under ``_AllShapes``: its recorder and config."""
     monkeypatch.setattr(dryrun, "StepRecorder", _AllShapes)
     lowered, _, cfg = dryrun.lower_cell(
         arch, shape.name, mesh, opts=opts,
         config=config or get_smoke_config(arch), shape=shape)
-    return lowered.compile().recorder.shapes, cfg
+    return lowered.compile().recorder, cfg
+
+
+def _all_shapes(monkeypatch, mesh, arch, shape, opts=(), config=None):
+    rec, cfg = _recorded(monkeypatch, mesh, arch, shape, opts, config)
+    return rec.shapes, cfg
 
 
 def test_moe_dispatch_holds_only_the_ranks_rows(world8, monkeypatch):
@@ -411,6 +423,55 @@ def test_mamba2_runs_split_over_its_heads(world8, monkeypatch):
     assert len({b, H, H // 4, P}) == 4 and P == N
     assert (b, H, P, N) not in seen and (2 * b, H, P, N) not in seen
     assert seen.get((b, H // 4, P, N), 0) > 0
+
+
+def _first_branch(q, k, v, mask, scale):
+    """Decode attention as the port computed it over a cache split along
+    its slots before: q, k and v gathered along their heads, then
+    DTensor's own propagation of the plain products and softmax."""
+    q, k, v = (gather_dim(t, 2) for t in (q, k, v))
+    B, Sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = reshape(q, B, Sq, nkv, nq // nkv, hd).permute(0, 2, 3, 1, 4)
+    s = torch.matmul(qg, k.permute(0, 2, 3, 1).unsqueeze(2)).float() * scale
+    s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype,
+                                          device=s.device))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.matmul(p, v.permute(0, 2, 1, 3).unsqueeze(2))
+    return reshape(out.permute(0, 3, 1, 2, 4), B, Sq, nq, hd)
+
+
+def test_slot_split_decode_gathers_no_cache_scores_or_logits(world8,
+                                                             monkeypatch):
+    """zamba2's smoke decode at batch 1 over 96 slots on ``(2, 4)`` (the
+    ``long_500k`` layout: the slots on "data", 48 a rank, its 4 KV heads
+    on "model"), greedy: the shared attention gathers no cache's heads
+    or slots, (1, 48 or 96, 4, 16), and no float32 scores along the
+    slots (last dim 96); the one all-gather is the greedy token's (max,
+    index) pairs of the 4 vocab shards, never the (B, V) logits. Its
+    collective bytes are below those of the route that gathered the
+    heads and left the softmax to DTensor (the cache's heads and the
+    scores gathered)."""
+    from repro_torch.models import attention
+    shape = ShapeConfig("long_500k", "decode", 96, 1)
+    rec, cfg = _recorded(monkeypatch, world8, "zamba2-2.7b", shape)
+    nkv, hd, V = cfg.num_kv_heads, cfg.resolved_head_dim, padded_vocab(cfg)
+    assert len({48, 96, nkv, hd, V, V // 4, cfg.d_model}) == 7
+    made = rec.made
+    for slots in (48, 96):
+        assert not any(s[1:] == (slots, nkv, hd) for _, s, _ in made)
+    assert not any(s[1:2] == (96,) for _, s, _ in made)
+    assert not any(s[-1:] == (96,) and dt == torch.float32
+                   for _, s, dt in made)
+    gathers = {(s, dt) for op, s, dt in made if "all_gather" in op}
+    assert gathers == {((4, 2), torch.float64)}, gathers
+    assert not any(s in ((1, V), (4, 1, V // 4)) for _, s, _ in made)
+    new = hlo_analysis.collective_bytes(rec.collectives)["total"]
+    monkeypatch.setattr(attention, "_slot_split", _first_branch)
+    before, _ = _recorded(monkeypatch, world8, "zamba2-2.7b", shape)
+    old = hlo_analysis.collective_bytes(before.collectives)["total"]
+    assert any(s[1:] == (48, nkv, hd) for _, s, _ in before.made)
+    assert 0 < new < old / 4, (new, old)
 
 
 def test_prefill_cell_holds_no_whole_embedding_table(world8, monkeypatch):
