@@ -54,8 +54,10 @@ class SemanticScorer(Protocol):
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` as a true float32 division on every device (a Python
-    scalar divisor becomes a reciprocal product on the card)."""
-    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+    scalar divisor becomes a reciprocal product on the card). The divisor
+    is filled on ``x``'s device: a tensor copied from the host would sync
+    the stream."""
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
 
 
 def extract_rois(frames: torch.Tensor, bboxes: torch.Tensor,

@@ -8,8 +8,8 @@ admission, CDF maintenance, queue selection, the Eq. 17–20 tick) is
 row-local: camera ``c``'s outputs depend only on camera ``c``'s lanes.
 So the serve plane splits over cameras: a ``CameraMesh`` of ``S``
 devices gives shard ``i`` the rows ``[i*C/S, (i+1)*C/S)``, and each
-shard runs the unsharded session's own cores (``_control_core``,
-``_serve_step``, ``_tick_core``) on its rows, on its device, with no data
+shard runs the unsharded session's own cores (``_fused_ingest``,
+``_control_core``, ``_tick_core``) on its rows, on its device, with no data
 crossing between shards.
 
 One process drives every shard, as the reference drives its whole mesh
@@ -251,11 +251,12 @@ def _host(x) -> np.ndarray:
 
 
 def _run_shards(shards, mesh: CameraMesh, program, aggregate: bool,
-                with_decisions: bool = True):
+                with_decisions: bool = True, read=_host):
     """Launch ``program(i, shard, device) -> (shard', outputs dict)`` on
     every shard, then bring each shard's outputs (and, with
-    ``aggregate``, its sums) to the host once and concatenate them in
-    camera order. Returns (shards', global outputs, aggregates | None)."""
+    ``aggregate``, its sums) to the host once, each by ``read``, and
+    concatenate them in camera order. Returns (shards', global outputs,
+    aggregates | None)."""
     new, outs, sums = [], [], []
     for i, (st, dev) in enumerate(zip(shards, mesh.devices)):
         st, out = program(i, st, dev)
@@ -264,9 +265,9 @@ def _run_shards(shards, mesh: CameraMesh, program, aggregate: bool,
         if aggregate:
             sums.append(_local_aggregates(
                 st, out["decisions"] if with_decisions else None))
-    host = [{k: _host(v) for k, v in out.items()} for out in outs]
+    host = [{k: read(v) for k, v in out.items()} for out in outs]
     merged = {k: np.concatenate([h[k] for h in host]) for k in host[0]}
-    agg = (_combine_aggregates([(_host(a), _host(b)) for a, b in sums])
+    agg = (_combine_aggregates([(read(a), read(b)) for a, b in sums])
            if aggregate else None)
     return tuple(new), merged, agg
 
@@ -274,12 +275,12 @@ def _run_shards(shards, mesh: CameraMesh, program, aggregate: bool,
 def control_step(shards, util, present=None, *, mesh: CameraMesh,
                  num_total: int, update_cdf: bool, do_tick: bool,
                  min_proc: float, budget: float, aggregate: bool = False,
-                 tick_cfg=None):
+                 tick_cfg=None, read=_host):
     """Sharded control step: CDF push -> admission -> queue selection ->
     (optional) tick, each shard running ``session._control_core`` on its
     rows of ``util`` (and ``present``, for a ragged batch), with Eq. 19's
     global camera count. Returns (shards', outputs as global NumPy
-    arrays, aggregates or None)."""
+    arrays, aggregates or None); ``read`` brings a tensor to the host."""
     from repro_torch.core.session import DEFAULT_TICK_CONFIG, _control_core
     cl = shards[0].num_cameras
     cfg = tick_cfg if tick_cfg is not None else DEFAULT_TICK_CONFIG
@@ -291,31 +292,35 @@ def control_step(shards, util, present=None, *, mesh: CameraMesh,
             do_tick=do_tick, min_proc=min_proc, budget=budget,
             num_total=num_total, tick_cfg=cfg)
 
-    return _run_shards(shards, mesh, program, aggregate)
+    return _run_shards(shards, mesh, program, aggregate, read=read)
 
 
 def serve_step(shards, frames, M_pos, norm, *, mesh: CameraMesh,
                num_total: int, update_cdf: bool, do_tick: bool,
                min_proc: float, budget: float, aggregate: bool = False,
-               tick_cfg=None, **ingest_kw):
+               tick_cfg=None, read=_host, **ingest_kw):
     """The sharded frames step: each shard's rows of the ``(C, T, N, 3)``
     batch go to its device (a view when they lie there already) through
     ONE fused ingest launch, planned for the whole array's camera count,
     then ``_control_core`` as in ``control_step``. Returns (shards',
-    outputs as global NumPy arrays, aggregates or None)."""
-    from repro_torch.core.session import DEFAULT_TICK_CONFIG, _serve_step
+    outputs as global NumPy arrays, aggregates or None); ``read`` brings
+    a tensor to the host."""
+    from repro_torch.core.session import (DEFAULT_TICK_CONFIG,
+                                          _control_core, _fused_ingest)
     cl = shards[0].num_cameras
     C = cl * len(shards)
     cfg = tick_cfg if tick_cfg is not None else DEFAULT_TICK_CONFIG
 
     def program(i, st, dev):
-        return _serve_step(
+        st, util, _ = _fused_ingest(
             st, _rows(frames, i, cl, dev), M_pos.to(dev), norm.to(dev),
-            update_cdf=update_cdf, do_tick=do_tick, min_proc=min_proc,
-            budget=budget, num_total=num_total, tick_cfg=cfg,
             plan_cameras=C, **ingest_kw)
+        return _control_core(
+            st, util, update_cdf=update_cdf, do_tick=do_tick,
+            min_proc=min_proc, budget=budget, num_total=num_total,
+            tick_cfg=cfg)
 
-    return _run_shards(shards, mesh, program, aggregate)
+    return _run_shards(shards, mesh, program, aggregate, read=read)
 
 
 def tick(shards, *, mesh: CameraMesh, num_total: int, min_proc: float,
@@ -336,7 +341,7 @@ def tick(shards, *, mesh: CameraMesh, num_total: int, min_proc: float,
     return new, out["rates"], out["resize_evicted"], agg
 
 
-def pop_topk(shards, *, mesh: CameraMesh, k: int, rows=None):
+def pop_topk(shards, *, mesh: CameraMesh, k: int, rows=None, read=_host):
     """Pop the global best ``k`` queued frames of a sharded state — the
     frames, in the order, that ``shed_queue.pop_topk_dev`` pops from the
     whole lanes. Returns (shards', cams (k,), seqs (k,)) int32 NumPy
@@ -346,7 +351,8 @@ def pop_topk(shards, *, mesh: CameraMesh, k: int, rows=None):
     (``shed_queue.topk_candidates_dev``: a superset of its part of the
     global top ``k``) with global camera ids; the host merges them with
     one ``np.lexsort`` by (utility key, camera, seq) and each shard clears
-    the popped slots it owns. ``rows``: optional global (C,) bool mask."""
+    the popped slots it owns. ``rows``: optional global (C,) bool mask;
+    ``read`` brings a tensor to the host."""
     cl, K = shards[0].q_util.shape
     k = int(k)
     kk = min(k, cl * K)
@@ -357,7 +363,7 @@ def pop_topk(shards, *, mesh: CameraMesh, k: int, rows=None):
         seq = st.q_seq.reshape(-1)[order].to(torch.int64)
         cands.append(torch.stack([key, order, seq, found.to(torch.int64)]))
     key, order, seq, found = np.concatenate(
-        [_host(c) for c in cands], axis=1)
+        [read(c) for c in cands], axis=1)
     shard = np.repeat(np.arange(len(shards)), kk)
     gcam = shard * cl + order // K
     live = np.flatnonzero(found)

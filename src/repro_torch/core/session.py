@@ -94,6 +94,7 @@ from repro_torch.kernels.hsv_features.ops import (
     ingest_pipeline,
     query_constants,
 )
+from repro_torch.metrics import MetricsRegistry
 
 # decision codes — (C, T) int8 arrays, vectorized per camera
 # (offer_batch marks padding slots that carried no frame with -1)
@@ -505,7 +506,8 @@ def _cascade_rates(rates, gate_fraction: float):
     r1 + (1-r1)*r2 tracks r and the degraded floor (already folded into
     ``rates``) bounds the combined rate."""
     def f32(x):
-        return torch.tensor(np.float32(x), device=rates.device)
+        return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                          device=rates.device)
     r1 = rates * f32(gate_fraction)
     r2 = (rates - r1) / torch.maximum(1.0 - r1, f32(1e-9))
     return r1, r2
@@ -590,22 +592,11 @@ def _fused_ingest(state: SessionState, frames, M_pos, norm, *, hue_ranges,
         frames, bg0, gain0, M_pos, norm, hue_ranges=hue_ranges, bs=bs,
         bv=bv, alpha=alpha, threshold=fg_threshold, use_fg=use_fg,
         bg_valid=bg_valid, op=op, width=width, plan_cameras=plan_cameras)
+    # filled on the device: a flag copied from the host syncs the stream
     state = dataclasses.replace(
         state, bg=res[4], gain=res[5],
-        bg_valid=torch.tensor(True, device=state.device))
+        bg_valid=torch.ones((), dtype=torch.bool, device=state.device))
     return state, res[3], (res[6] if width else None)
-
-
-def _serve_step(state: SessionState, frames, M_pos, norm, *, update_cdf,
-                do_tick, min_proc, budget, num_total=None,
-                tick_cfg: TickConfig = DEFAULT_TICK_CONFIG, **ingest_kw):
-    """The serve step: fused ingest -> CDF push -> admission -> queue
-    selection -> threshold/queue-size control, all launched on the
-    state's device without a host round trip of the utilities."""
-    state, util, _ = _fused_ingest(state, frames, M_pos, norm, **ingest_kw)
-    return _control_core(state, util, update_cdf=update_cdf, do_tick=do_tick,
-                         min_proc=min_proc, budget=budget,
-                         num_total=num_total, tick_cfg=tick_cfg)
 
 
 def _on_whole_state(method):
@@ -631,6 +622,14 @@ def _on_whole_state(method):
 def _host(x) -> np.ndarray:
     """A compact output on the host (tensors are copied, arrays pass)."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _nonzero(x):
+    return torch.nonzero(x, as_tuple=True)
+
+
+def _tolist(x):
+    return x.tolist()
 
 
 class ShedSession:
@@ -732,6 +731,11 @@ class ShedSession:
             queue_size=queue_size, queue_capacity=queue_capacity,
             s2_window=s2_window, quantile_bins=bins, device=self.device))
         self.stats = ShedderStats()
+        # the session's own spans and counters: the step path's spans
+        # (``shed.*``, ``cascade.*``) while ``metrics.tracing``, and
+        # ``session.host_syncs``, one a device read on that path, always
+        self.metrics = MetricsRegistry()
+        self._host_syncs = self.metrics.counter("session.host_syncs")
         self.per_camera_offered = np.zeros((self.num_cameras,), np.int64)
         self.per_camera_dropped = np.zeros((self.num_cameras,), np.int64)
         self._consts: Optional[Tuple[Any, Tuple[Any, Any, str]]] = None
@@ -758,6 +762,21 @@ class ShedSession:
         """The state as it is held: the whole state, or its shards in
         mesh (camera) order."""
         return (self._state,) if self._shards is None else self._shards
+
+    def _read(self, x, read=_host):
+        """``read(x)`` where it reads a device value: a tensor's read is
+        one host sync of the step path, counted in ``session.host_syncs``
+        and spanned as ``shed.sync``; anything else is read as it is.
+        A camera-sharded session's reads of its shards' outputs are
+        counted too (``fleet`` reads through this). The step path makes
+        no other stream sync (its constants are filled on the device, not
+        copied there), beyond uploads of data from the host: inputs given
+        there, and a sharded pop's slots."""
+        if not isinstance(x, torch.Tensor):
+            return read(x)
+        self._host_syncs.inc()
+        with self.metrics.span("shed.sync"):
+            return read(x)
 
     def _host_leaf(self, name: str) -> np.ndarray:
         """One leaf's global lanes on the host, without gathering the
@@ -985,7 +1004,7 @@ class ShedSession:
         n = frames.shape[2] * frames.shape[3]
         for st in self._lanes():
             if st.bg.shape[1] != n:
-                if bool(st.bg_valid):
+                if self._read(st.bg_valid, bool):
                     raise ValueError(
                         f"frame size {n} px does not match carried "
                         f"background state {(self.num_cameras, st.bg.shape[1])}")
@@ -1085,39 +1104,55 @@ class ShedSession:
         if s2_utilities is not None and frames is not None:
             raise ValueError("s2_utilities= goes with utilities=, not "
                              "frames= (frames are scored by the cascade)")
-        if self.cascade is not None and (frames is not None
-                                         or s2_utilities is not None):
-            return self._cascade_step(frames, utilities, s2_utilities,
-                                      items, tick)
+        with self.metrics.span("shed.step"):
+            if self.cascade is not None and (frames is not None
+                                             or s2_utilities is not None):
+                return self._cascade_step(frames, utilities, s2_utilities,
+                                          items, tick)
+            return self._single_stage_step(frames, utilities, items, tick)
+
+    def _single_stage_step(self, frames, utilities, items,
+                           tick) -> StepResult:
+        """The single-stage step of ``step``: the fused ingest of
+        ``frames`` (or the given ``utilities``), then the control plane."""
+        span = self.metrics.span
         kw = dict(update_cdf=self.update_cdf_online, do_tick=bool(tick),
                   min_proc=self.min_proc, budget=self._budget,
                   num_total=self._num_active, tick_cfg=self._tick_cfg)
         if frames is not None:
-            args, ingest_kw = self._ingest_args(self._step_frames(frames))
+            frames = self._step_frames(frames)
             if self.mesh is not None:
-                self._shards, out, agg = fl.serve_step(
-                    self._shards, *args, mesh=self.mesh,
-                    aggregate=self.fleet_aggregate, **ingest_kw, **kw)
+                # ingest and control in one launch a shard
+                with span("shed.serve"):
+                    args, ingest_kw = self._ingest_args(frames)
+                    self._shards, out, agg = fl.serve_step(
+                        self._shards, *args, mesh=self.mesh,
+                        aggregate=self.fleet_aggregate, read=self._read,
+                        **ingest_kw, **kw)
+                    self._absorb_fleet(agg)
+                return self._absorb_control(out, items, tick)
+            with span("shed.ingest"):
+                args, ingest_kw = self._ingest_args(frames)
+                self._state, util, _ = _fused_ingest(self._state, *args,
+                                                     **ingest_kw)
+        else:
+            util = self._step_utilities(utilities)
+        with span("shed.control"):
+            if self.mesh is not None:
+                self._shards, out, agg = fl.control_step(
+                    self._shards, util, mesh=self.mesh,
+                    aggregate=self.fleet_aggregate, read=self._read, **kw)
                 self._absorb_fleet(agg)
             else:
-                self._state, out = _serve_step(self._state, *args,
-                                               **ingest_kw, **kw)
-            return self._absorb_control(out, items, tick)
-        util = self._step_utilities(utilities)
-        if self.mesh is not None:
-            self._shards, out, agg = fl.control_step(
-                self._shards, util, mesh=self.mesh,
-                aggregate=self.fleet_aggregate, **kw)
-            self._absorb_fleet(agg)
-        else:
-            self._state, out = _control_core(self._state, util, **kw)
+                self._state, out = _control_core(self._state, util, **kw)
         return self._absorb_control(out, items, tick)
 
     def _step_frames(self, frames) -> torch.Tensor:
         if self.model is None:
             raise ValueError("step(frames=...) needs a trained model "
                              "(call fit() or pass model=)")
-        frames = self._check_frames(frames)
+        with self.metrics.span("shed.check_frames"):
+            frames = self._check_frames(frames)
         if frames.shape[1] == 0:
             raise ValueError("empty frame batch")
         return frames
@@ -1132,7 +1167,8 @@ class ShedSession:
                 dict(hue_ranges=q.hue_ranges, bs=q.bs, bv=q.bv,
                      alpha=q.alpha, fg_threshold=q.threshold,
                      use_fg=q.use_foreground,
-                     bg_valid=bool(self._lanes()[0].bg_valid), op=op))
+                     bg_valid=self._read(self._lanes()[0].bg_valid, bool),
+                     op=op))
 
     def _step_utilities(self, utilities) -> torch.Tensor:
         util = np.asarray(utilities, np.float32)
@@ -1155,33 +1191,41 @@ class ShedSession:
         -> ONE batched scorer call over the survivors' frames -> phase B
         (stage-2 ring/gate + queue insertion + optional tick)."""
         dev = self.device
+        span = self.metrics.span
         if frames is not None:
             frames = self._step_frames(frames)
-            args, ingest_kw = self._ingest_args(frames)
-            self.state, util, bbox = _fused_ingest(
-                self.state, *args, **ingest_kw, width=frames.shape[3])
+            with span("shed.ingest"):
+                args, ingest_kw = self._ingest_args(frames)
+                self.state, util, bbox = _fused_ingest(
+                    self.state, *args, **ingest_kw, width=frames.shape[3])
         else:
             util = self._step_utilities(utilities)
         present = torch.ones(util.shape, dtype=torch.bool, device=dev)
-        self.state, pass1 = _cascade_admit(
-            self.state, util, present, update_cdf=self.update_cdf_online,
-            tick_cfg=self._tick_cfg)
+        with span("cascade.admit"):
+            self.state, pass1 = _cascade_admit(
+                self.state, util, present, update_cdf=self.update_cdf_online,
+                tick_cfg=self._tick_cfg)
         if s2_utilities is not None:
             s2 = torch.as_tensor(np.asarray(s2_utilities, np.float32)
                                  .reshape(tuple(util.shape)), device=dev)
         else:
             s2 = torch.zeros_like(util)
-            r, t = torch.nonzero(pass1, as_tuple=True)
-            if r.numel():
-                s2[r, t] = torch.as_tensor(self.cascade.scorer.score(
-                    frames[r, t], bbox[r, t])).to(dev, torch.float32)
-        self.state, out = _cascade_finish_core(
-            self.state, s2, present, pass1, do_tick=bool(tick),
-            min_proc=self.min_proc, budget=self._budget,
-            gate_fraction=self._gate_fraction, num_total=self._num_active,
-            tick_cfg=self._tick_cfg)
+            with span("cascade.survivors"):
+                r, t = self._read(pass1, _nonzero)
+                rois = (frames[r, t], bbox[r, t]) if r.numel() else None
+            if rois is not None:
+                with span("cascade.score"):
+                    s2[r, t] = torch.as_tensor(self.cascade.scorer.score(
+                        *rois)).to(dev, torch.float32)
+            del rois            # the survivors' frames go before phase B
+        with span("cascade.finish"):
+            self.state, out = _cascade_finish_core(
+                self.state, s2, present, pass1, do_tick=bool(tick),
+                min_proc=self.min_proc, budget=self._budget,
+                gate_fraction=self._gate_fraction,
+                num_total=self._num_active, tick_cfg=self._tick_cfg)
         return self._absorb_control(out, items, tick,
-                                    s2_scores=s2.cpu().numpy())
+                                    s2_scores=self._read(s2))
 
     def _absorb_control(self, out: Dict[str, torch.Tensor],
                         items: Optional[Sequence[Sequence[Any]]],
@@ -1191,40 +1235,43 @@ class ShedSession:
         """Fold a control step's compact outputs (tensors, or a sharded
         step's global arrays) into host bookkeeping: stats, payload
         registry, per-camera counters."""
-        host = {k: _host(v) for k, v in out.items()}
-        decisions = host["decisions"]
-        pushed_seq = host["pushed_seq"]
-        ev_res = host["evicted_resident"]
-        push_ev = host["push_evictions"]
-        C = decisions.shape[0]
-        offered = decisions >= 0
-        self.stats.offered += int(offered.sum())
-        self.stats.dropped_admission += int((decisions == SHED_ADMISSION).sum())
-        self.stats.dropped_cascade += int((decisions == SHED_CASCADE).sum())
-        self.stats.dropped_queue += int(push_ev.sum())
-        self.per_camera_offered += offered.sum(axis=1)
-        res_cnt = (ev_res >= 0).sum(axis=1)
-        self.per_camera_dropped += (decisions > ADMIT).sum(axis=1) + res_cnt
-        # net queue-depth change: frames that survived the batch as
-        # ADMIT minus evicted residents (resize evictions below)
-        self._depths += (decisions == ADMIT).sum(axis=1) - res_cnt
-        evicted: List[np.ndarray] = []
-        for c in range(C):
-            pl = self._payloads[c]
-            for t in np.flatnonzero(decisions[c] == ADMIT):
-                item = items[c][t] if items is not None else (c, int(t))
-                pl[int(pushed_seq[c, t])] = item
-            evs = ev_res[c][ev_res[c] >= 0]
-            for s in evs:
-                pl.pop(int(s), None)
-            evicted.append(evs.astype(np.int64))
-        rates = None
-        if ticked:
-            rates = host["rates"]
-            self._absorb_resize(host["resize_evicted"], evicted)
-        return StepResult(decisions=decisions, pushed_seq=pushed_seq,
-                          evicted=evicted, target_drop_rate=rates,
-                          s2_scores=s2_scores)
+        with self.metrics.span("shed.absorb_control"):
+            host = {k: self._read(v) for k, v in out.items()}
+            decisions = host["decisions"]
+            pushed_seq = host["pushed_seq"]
+            ev_res = host["evicted_resident"]
+            push_ev = host["push_evictions"]
+            C = decisions.shape[0]
+            offered = decisions >= 0
+            st = self.stats
+            st.offered += int(offered.sum())
+            st.dropped_admission += int((decisions == SHED_ADMISSION).sum())
+            st.dropped_cascade += int((decisions == SHED_CASCADE).sum())
+            st.dropped_queue += int(push_ev.sum())
+            self.per_camera_offered += offered.sum(axis=1)
+            res_cnt = (ev_res >= 0).sum(axis=1)
+            self.per_camera_dropped += ((decisions > ADMIT).sum(axis=1)
+                                        + res_cnt)
+            # net queue-depth change: frames that survived the batch as
+            # ADMIT minus evicted residents (resize evictions below)
+            self._depths += (decisions == ADMIT).sum(axis=1) - res_cnt
+            evicted: List[np.ndarray] = []
+            for c in range(C):
+                pl = self._payloads[c]
+                for t in np.flatnonzero(decisions[c] == ADMIT):
+                    item = items[c][t] if items is not None else (c, int(t))
+                    pl[int(pushed_seq[c, t])] = item
+                evs = ev_res[c][ev_res[c] >= 0]
+                for s in evs:
+                    pl.pop(int(s), None)
+                evicted.append(evs.astype(np.int64))
+            rates = None
+            if ticked:
+                rates = host["rates"]
+                self._absorb_resize(host["resize_evicted"], evicted)
+            return StepResult(decisions=decisions, pushed_seq=pushed_seq,
+                              evicted=evicted, target_drop_rate=rates,
+                              s2_scores=s2_scores)
 
     def _absorb_resize(self, rz: np.ndarray,
                        evicted: Optional[List[np.ndarray]] = None) -> None:
@@ -1358,7 +1405,7 @@ class ShedSession:
         if self.mesh is not None:
             self._shards, out, agg = fl.control_step(
                 self._shards, util, present, mesh=self.mesh,
-                aggregate=self.fleet_aggregate, **kw)
+                aggregate=self.fleet_aggregate, read=self._read, **kw)
             self._absorb_fleet(agg)
         else:
             self._state, out = _control_core(
@@ -1402,27 +1449,29 @@ class ShedSession:
         pool to those camera lanes. Returns up to ``k`` payloads."""
         if k <= 0:
             return []
-        rows = None
-        if cams is not None:
-            rows = np.zeros((self.num_cameras,), bool)
-            rows[[int(c) for c in cams]] = True
-        if self.mesh is not None:
-            self._shards, pc, ps = fl.pop_topk(self._shards, mesh=self.mesh,
-                                               k=int(k), rows=rows)
-        else:
-            st = self._state
-            if rows is not None:
-                rows = torch.as_tensor(rows, device=self.device)
-            st.q_util, st.q_seq, pc, ps = sq.pop_topk_dev(
-                st.q_util, st.q_seq, int(k), rows)
-        items: List[Any] = []
-        for c, s in zip(pc.tolist(), ps.tolist()):
-            if s < 0:               # -1 padding: pool drained
-                break
-            self._depths[c] -= 1
-            items.append(self._payloads[c].pop(s, (c, s)))
-        self.stats.sent += len(items)
-        return items
+        with self.metrics.span("shed.next_frames"):
+            rows = None
+            if cams is not None:
+                rows = np.zeros((self.num_cameras,), bool)
+                rows[[int(c) for c in cams]] = True
+            if self.mesh is not None:
+                self._shards, pc, ps = fl.pop_topk(
+                    self._shards, mesh=self.mesh, k=int(k), rows=rows,
+                    read=self._read)
+            else:
+                st = self._state
+                if rows is not None:
+                    rows = torch.as_tensor(rows, device=self.device)
+                st.q_util, st.q_seq, pc, ps = sq.pop_topk_dev(
+                    st.q_util, st.q_seq, int(k), rows)
+            items: List[Any] = []
+            for c, s in zip(self._read(pc, _tolist), self._read(ps, _tolist)):
+                if s < 0:               # -1 padding: pool drained
+                    break
+                self._depths[c] -= 1
+                items.append(self._payloads[c].pop(s, (c, s)))
+            self.stats.sent += len(items)
+            return items
 
     def __len__(self) -> int:
         return int(self._depths.sum())
@@ -1463,23 +1512,26 @@ class ShedSession:
         call (``cam=None``) updates every lane. The EWMA step is taken in
         float64 and rounded to float32, as the reference's host twin
         does, so the lanes stay bit-identical to it."""
-        st = self.state
-        q = st.proc_q
-        x = torch.full_like(q, max(float(proc_latency), self.min_proc))
-        f64 = dict(dtype=torch.float64, device=self.device)
-        a = torch.where(x > q, torch.tensor(self.ewma_alpha_up, **f64),
-                        torch.tensor(self.ewma_alpha, **f64))
-        ew = (q.to(torch.float64) + a * (x - q).to(torch.float64)).to(
-            torch.float32)
-        new = torch.where(st.proc_seen, ew, x)
-        if cam is None:
-            st.proc_q = new
-            st.proc_seen = torch.ones_like(st.proc_seen)
-        else:
-            upd = torch.arange(self.num_cameras,
-                               device=self.device) == int(cam)
-            st.proc_q = torch.where(upd, new, q)
-            st.proc_seen = st.proc_seen | upd
+        with self.metrics.span("shed.report_latency"):
+            st = self.state
+            q = st.proc_q
+            x = torch.full_like(q, max(float(proc_latency), self.min_proc))
+            # the alphas are filled on the device, not copied to it: a
+            # copy from the host would sync the stream
+            f64 = dict(dtype=torch.float64, device=self.device)
+            a = torch.where(x > q, torch.full((), self.ewma_alpha_up, **f64),
+                            torch.full((), self.ewma_alpha, **f64))
+            ew = (q.to(torch.float64) + a * (x - q).to(torch.float64)).to(
+                torch.float32)
+            new = torch.where(st.proc_seen, ew, x)
+            if cam is None:
+                st.proc_q = new
+                st.proc_seen = torch.ones_like(st.proc_seen)
+            else:
+                upd = torch.arange(self.num_cameras,
+                                   device=self.device) == int(cam)
+                st.proc_q = torch.where(upd, new, q)
+                st.proc_seen = st.proc_seen | upd
 
     @_on_whole_state
     def report_ingress_fps(self, fps: float, cam: Optional[int] = None) -> None:

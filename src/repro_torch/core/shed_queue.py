@@ -520,12 +520,14 @@ def topk_candidates_dev(util, seq, kk: int, rows=None):
 
 def clear_slots_dev(util, seq, idx):
     """New (C, K) lanes with the flat slots ``idx`` emptied; an index of
-    ``C*K`` writes to a padding slot that is cut off (no slot)."""
+    ``C*K`` writes to a padding slot that is cut off (no slot). The fill
+    values are made on the lanes' device: a Python scalar would be
+    copied there from the host, a stream sync."""
     C, K = util.shape
     nu = torch.cat([util.reshape(-1), util.new_zeros(1)])
-    nu[idx] = float("-inf")
+    nu[idx] = util.new_full((), float("-inf"))
     ns = torch.cat([seq.reshape(-1), seq.new_zeros(1)])
-    ns[idx] = -1
+    ns[idx] = seq.new_full((), -1)
     return nu[:C * K].reshape(C, K), ns[:C * K].reshape(C, K)
 
 
