@@ -62,7 +62,7 @@ Phases, each printing one JSON line:
    bit-identical to the live session; both gates must shed; the step's
    median beside the single-stage serve step's, and its parts (the
    ingest call and its device time, phase A with the survivors' index,
-   the survivors' gather, the scorer, phase B with the tick); a
+   the scorer cropping from the batch, phase B with the tick); a
    profiled window of three steps (reported per step) must show the
    ingest kernel;
 6. hist — the CUDA ``hsv_hist_batch`` against its plain version at the
@@ -1348,7 +1348,7 @@ def cascade_phase(dev, kernel, q, frames, labels, serve_ms: float) -> dict:
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.cascade import Cascade, MLPScorer, fit_scorer
+    from repro_torch.cascade import Cascade, FrameRows, MLPScorer, fit_scorer
     from repro_torch.convert import state_from_numpy
     from repro_torch.core import open_session
     from repro_torch.core import session as S
@@ -1502,11 +1502,8 @@ def cascade_phase(dev, kernel, q, frames, labels, serve_ms: float) -> dict:
     _, pass1 = S._cascade_admit(st, util_t, ones, update_cdf=True,
                                 tick_cfg=sess._tick_cfg)
     r, t = torch.nonzero(pass1, as_tuple=True)
-    gather_ms = cuda_ms(lambda: batch[r, t], runs=10)
-    survivors = batch[r, t]
-    scorer_ms = cuda_ms(lambda: scorer.score(survivors, bbox[r, t]),
-                        runs=10)
-    del survivors
+    scorer_ms = cuda_ms(lambda: scorer.score(FrameRows(batch, r, t),
+                                             bbox[r, t]), runs=10)
     s2_t = torch.zeros((C, T), device=dev)
     kw = dict(do_tick=True, min_proc=sess.min_proc, budget=sess._budget,
               gate_fraction=sess._gate_fraction,
@@ -1564,7 +1561,6 @@ def cascade_phase(dev, kernel, q, frames, labels, serve_ms: float) -> dict:
             "ingest_bbox_call": ingest_ms,
             "ingest_bbox_device": ingest_dev[0] if ingest_dev else None,
             "admit_and_survivor_index": admit_ms,
-            "survivor_gather": gather_ms,
             "scorer": scorer_ms,
             "finish_and_tick": finish_ms},
         "survivors": int(r.numel()),

@@ -12,6 +12,7 @@ from repro_torch.cascade.fit import collect_examples, fit_scorer
 from repro_torch.cascade.scorer import (
     CallableScorer,
     Cascade,
+    FrameRows,
     MLPScorer,
     SemanticScorer,
     extract_rois,
@@ -22,6 +23,7 @@ from repro_torch.cascade.scorer import (
 __all__ = [
     "Cascade",
     "SemanticScorer",
+    "FrameRows",
     "MLPScorer",
     "CallableScorer",
     "extract_rois",

@@ -12,6 +12,12 @@ which *can* express size, aspect and layout.
 ``SemanticScorer``
     The protocol: ``score(frames, bboxes) -> (B,)`` float32 scores.
 
+``FrameRows`` (from ``repro_torch.core.frame_rows``)
+    What a session hands the scorer as ``frames``: its step's
+    ``(C, T, H, W, 3)`` batch and the survivors' ``(camera, t)`` index.
+    A ROI scorer crops the survivors where they lie; ``gather()`` copies
+    out their whole frames for a scorer that needs them.
+
 ``MLPScorer``
     Fixed-grid ROI resample -> chroma features -> 2-layer MLP ->
     softsign, on the device its parameters live on, in full float32.
@@ -25,12 +31,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Protocol, runtime_checkable
+from typing import (Any, Callable, Dict, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
 
 from repro_torch.core.colors import rgb_to_hsv
+from repro_torch.core.frame_rows import FrameRows
 from repro_torch.device import DeviceLike, resolve_device
 
 # geometry rider appended to the flattened crop: the fixed-grid resample
@@ -46,9 +54,12 @@ class SemanticScorer(Protocol):
     per-frame semantic utilities."""
 
     def score(self, frames, bboxes) -> torch.Tensor:
-        """frames: (B, H, W, 3) float32 RGB in [0, 255]; bboxes: (B, 4)
-        int32 (row_min, row_max, col_min, col_max), all -1 = empty; a
-        session passes tensors on its device. Returns (B,) float32."""
+        """frames: (B, H, W, 3) float32 RGB in [0, 255], or a
+        ``FrameRows`` (a session passes one: its batch and the B
+        survivors' index, on its device; a scorer that wants whole
+        frames calls ``frames.gather()``); bboxes: (B, 4) int32 (row_min,
+        row_max, col_min, col_max), all -1 = empty, a tensor on the
+        session's device. Returns (B,) float32."""
         ...
 
 
@@ -61,16 +72,21 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
 
 
 def extract_rois(frames: torch.Tensor, bboxes: torch.Tensor,
-                 size: int) -> torch.Tensor:
+                 size: int,
+                 rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> torch.Tensor:
     """Crop each frame to its foreground bbox and resample to a fixed
     ``(size, size)`` grid (nearest neighbour). Empty bboxes (all -1) fall
     back to the full frame.
 
-    frames: (B, H, W, 3); bboxes: (B, 4) int32 inclusive bounds, both on
-    one device. Returns (B, size, size, 3) float32.
+    frames: (B, H, W, 3), or with ``rows=(cams, ts)`` ((B,) int64) a
+    (C, T, H, W, 3) batch whose rows ``frames[cams[i], ts[i]]`` are
+    cropped in place; bboxes: (B, 4) int32 inclusive bounds; all on one
+    device. Returns (B, size, size, 3) float32: only the crops are
+    converted, so no frame is copied.
     """
-    frames = frames.to(torch.float32)
-    B, H, W = frames.shape[:3]
+    H, W = frames.shape[-3:-1]
+    B = bboxes.shape[0]
     bb = bboxes.to(torch.int32)
     empty = bb[:, 1] < 0
     r0 = torch.where(empty, 0, bb[:, 0])
@@ -85,8 +101,11 @@ def extract_rois(frames: torch.Tensor, bboxes: torch.Tensor,
         torch.int32)
     ys = torch.clamp(ys, 0, H - 1).to(torch.int64)
     xs = torch.clamp(xs, 0, W - 1).to(torch.int64)
-    rows = torch.arange(B, device=frames.device)[:, None, None]
-    return frames[rows, ys[:, :, None], xs[:, None, :]]
+    if rows is None:
+        lead = (torch.arange(B, device=frames.device)[:, None, None],)
+    else:
+        lead = tuple(i[:, None, None] for i in rows)
+    return frames[lead + (ys[:, :, None], xs[:, None, :])].to(torch.float32)
 
 
 def roi_geometry(bboxes: torch.Tensor, height: int, width: int
@@ -156,14 +175,19 @@ class MLPScorer:
 
     def score(self, frames, bboxes) -> torch.Tensor:
         """(B,) float32 scores on the parameters' device; numpy or tensor
-        inputs are moved there."""
+        inputs are moved there. A ``FrameRows`` is cropped on its batch's
+        device (no frame is gathered) and the crops are moved."""
         dev = self.params["w1"].device
-        frames = torch.as_tensor(frames).to(dev, torch.float32)
+        if isinstance(frames, FrameRows):
+            src, rows = frames.batch, (frames.cams, frames.ts)
+        else:
+            src, rows = torch.as_tensor(frames).to(dev), None
         bboxes = torch.as_tensor(bboxes).to(dev, torch.int32)
-        if frames.shape[0] == 0:
+        if bboxes.shape[0] == 0:
             return torch.zeros((0,), dtype=torch.float32, device=dev)
-        crops = extract_rois(frames, bboxes, self.roi_size)
-        geo = roi_geometry(bboxes, frames.shape[1], frames.shape[2])
+        crops = extract_rois(src, bboxes.to(src.device), self.roi_size,
+                             rows=rows).to(dev)
+        geo = roi_geometry(bboxes, *src.shape[-3:-1])
         # softsign, not sigmoid: a well-trained head drives float32
         # sigmoid to exactly 0.0/1.0, and a point mass at the extremes is
         # invisible to the stage-2 quantile threshold; x/(8+|x|) is
@@ -198,12 +222,15 @@ class MLPScorer:
 @dataclass
 class CallableScorer:
     """Adapter: any callable as a SemanticScorer (mocks/tests). ``fn``
-    gets the session's tensors and may return a tensor or anything
+    gets the session's tensors, the survivors' whole (B, H, W, 3) frames
+    gathered from a ``FrameRows``, and may return a tensor or anything
     ``np.asarray`` takes."""
     fn: Callable[[Any, Any], Any]
     roi_size: int = 16
 
     def score(self, frames, bboxes) -> torch.Tensor:
+        if isinstance(frames, FrameRows):
+            frames = frames.gather()
         out = self.fn(frames, bboxes)
         if not isinstance(out, torch.Tensor):
             out = torch.as_tensor(np.asarray(out, np.float32))
@@ -235,5 +262,6 @@ class Cascade:
             raise ValueError("cascade window must be >= 1")
 
 
-__all__ = ["SemanticScorer", "MLPScorer", "CallableScorer", "Cascade",
-           "N_GEO", "extract_rois", "roi_geometry", "scorer_logits"]
+__all__ = ["SemanticScorer", "FrameRows", "MLPScorer", "CallableScorer",
+           "Cascade", "N_GEO", "extract_rois", "roi_geometry",
+           "scorer_logits"]

@@ -74,6 +74,7 @@ from repro_torch.core import fleet as fl
 from repro_torch.core import shed_queue as sq
 from repro_torch.core.colors import COLORS, Color
 from repro_torch.core.control import LatencyInputs
+from repro_torch.core.frame_rows import FrameRows
 from repro_torch.core.shedder import ShedderStats
 from repro_torch.core.threshold import (
     bucket_index_dev,
@@ -736,6 +737,11 @@ class ShedSession:
         # ``session.host_syncs``, one a device read on that path, always
         self.metrics = MetricsRegistry()
         self._host_syncs = self.metrics.counter("session.host_syncs")
+        # a cascade session's ``cascade.frames_gathered``: the survivors'
+        # whole frames its scorer copied out (``FrameRows.gather``)
+        if cascade is not None:
+            self._frames_gathered = self.metrics.counter(
+                "cascade.frames_gathered")
         self.per_camera_offered = np.zeros((self.num_cameras,), np.int64)
         self.per_camera_dropped = np.zeros((self.num_cameras,), np.int64)
         self._consts: Optional[Tuple[Any, Tuple[Any, Any, str]]] = None
@@ -1188,8 +1194,10 @@ class ShedSession:
         ingest (utilities and the foreground bbox rider in one kernel
         launch) and phase A (stage-1 CDF push + color gate) on the
         session's device -> the survivors' index on the host (one sync)
-        -> ONE batched scorer call over the survivors' frames -> phase B
-        (stage-2 ring/gate + queue insertion + optional tick)."""
+        -> ONE batched scorer call over the survivors, handed as a
+        ``FrameRows`` (the batch and their index: a ROI scorer crops them
+        in place) -> phase B (stage-2 ring/gate + queue insertion +
+        optional tick)."""
         dev = self.device
         span = self.metrics.span
         if frames is not None:
@@ -1212,12 +1220,13 @@ class ShedSession:
             s2 = torch.zeros_like(util)
             with span("cascade.survivors"):
                 r, t = self._read(pass1, _nonzero)
-                rois = (frames[r, t], bbox[r, t]) if r.numel() else None
-            if rois is not None:
+                rows = FrameRows(frames, r, t) if r.numel() else None
+            if rows is not None:
                 with span("cascade.score"):
                     s2[r, t] = torch.as_tensor(self.cascade.scorer.score(
-                        *rois)).to(dev, torch.float32)
-            del rois            # the survivors' frames go before phase B
+                        rows, bbox[r, t])).to(dev, torch.float32)
+                if rows.gathered:
+                    self._frames_gathered.inc(r.numel())
         with span("cascade.finish"):
             self.state, out = _cascade_finish_core(
                 self.state, s2, present, pass1, do_tick=bool(tick),

@@ -456,10 +456,12 @@ def test_cascade_trace_matches_reference_host_twin(exact_tick,
     assert t.tick() == j.tick()
 
 
-def test_frames_cascade_step_matches_reference():
-    """``step(frames)`` on a cascade session: the fused ingest's bbox
-    rider feeds ONE scorer call a step over the color gate's survivors;
-    scores agree with the reference's at 1e-5 and decisions exactly."""
+def _frames_cascade_vs_reference(direct: bool):
+    """Four ticked ``step(frames)`` calls of a port cascade session and
+    the reference's on the same frames: scores at 1e-5, decisions, seqs,
+    stats and the s2 threshold exactly. ``direct``: the port's
+    ``MLPScorer`` crops the survivors from the step's batch; else a
+    ``CallableScorer`` spy over it gets their gathered frames."""
     C, T, H, W = 2, 6, 24, 32
     scs = [generate_scenario(s, num_frames=4 * T, height=H, width=W,
                              vehicle_rate=0.3) for s in range(C)]
@@ -482,10 +484,10 @@ def test_frames_cascade_step_matches_reference():
     js = jcore.ShedSession(jcore.Query.any_of("red", "yellow", **q), C,
                            serve="host", model=jm, frame_shape=(H, W),
                            cascade=jsc.Cascade(ref, window=64))
+    scorer = port if direct else tsc.CallableScorer(spy)
     ts = tcore.ShedSession(tcore.Query.any_of("red", "yellow", **q), C,
                            device="cpu", model=tm, frame_shape=(H, W),
-                           cascade=tsc.Cascade(tsc.CallableScorer(spy),
-                                               window=64))
+                           cascade=tsc.Cascade(scorer, window=64))
     for s in (js, ts):
         s.report_backend_latency(0.15)
     for i in range(4):
@@ -497,8 +499,121 @@ def test_frames_cascade_step_matches_reference():
         np.testing.assert_array_equal(b.decisions, a.decisions)
         np.testing.assert_array_equal(b.pushed_seq, a.pushed_seq)
         survivors = int((b.decisions != SHED_ADMISSION).sum())
-        assert len(calls) == i + 1 and calls[-1][0] == (survivors, H, W, 3)
+        if direct:
+            assert not calls
+        else:
+            assert len(calls) == i + 1
+            assert calls[-1][0] == (survivors, H, W, 3)
+    gathered = ts.metrics.counter("cascade.frames_gathered").value
+    assert (gathered == 0) if direct else (gathered > 0)
     assert ts.stats.dropped_admission > 0 and ts.stats.dropped_cascade > 0
     assert (b.decisions == ADMIT).any()
     np.testing.assert_array_equal(ts.state.s2_threshold.numpy(),
                                   np.asarray(js.state.s2_threshold))
+
+
+def test_frames_cascade_step_matches_reference():
+    """``step(frames)`` on a cascade session: the fused ingest's bbox
+    rider feeds ONE scorer call a step over the color gate's survivors;
+    scores agree with the reference's at 1e-5 and decisions exactly. A
+    spy scorer sees the survivors' whole (B, H, W, 3) frames."""
+    _frames_cascade_vs_reference(direct=False)
+
+
+def test_frames_cascade_step_crops_in_place_like_the_reference():
+    """The same with the port's ``MLPScorer`` given to the session
+    itself, as a deployment runs it: the ROIs cropped from the step's
+    batch score as the reference's scorer does on the same frames, and
+    no frame is gathered."""
+    _frames_cascade_vs_reference(direct=True)
+
+
+def _rows_case(case, rng, C=3, T=4, H=20, W=30):
+    """A (C, T, H, W, 3) batch, a survivors' index (cams, ts) and their
+    bboxes for one of the cases of the in-place crop."""
+    if case == "t1":
+        T = 1
+    batch = torch.from_numpy(
+        rng.uniform(0, 255, (C, T, H, W, 3)).astype(np.float32))
+    B = 1 if case == "b1" else 6
+    cams = torch.from_numpy(rng.integers(0, C, B))
+    ts = torch.from_numpy(rng.integers(0, T, B))
+    _, bb = _frames_bboxes(rng, B=max(B, 3), H=H, W=W)
+    bb = bb[:B]
+    if case == "empty":
+        bb[:] = -1
+    elif case == "edges":           # each frame edge, then the whole frame
+        bb = np.array([[0, 7, 3, 12], [9, H - 1, 4, 20], [2, 11, 0, 5],
+                       [6, 14, 17, W - 1], [0, H - 1, 0, W - 1],
+                       [H - 1, H - 1, W - 1, W - 1]], np.int32)
+    elif case == "one_pixel":
+        bb[:] = [5, 5, 7, 7]
+        bb[1] = [0, 0, W - 1, W - 1]
+    elif case == "repeated_camera":
+        cams = torch.tensor([1, 1, 1, 0, 1, 2])
+        ts = torch.tensor([0, 2, 0, 1, 3, 3])
+    return batch, cams, ts, torch.from_numpy(bb)
+
+
+@pytest.mark.parametrize("case", ["empty", "edges", "one_pixel",
+                                  "repeated_camera", "b1", "t1"])
+def test_rows_crop_in_place_bit_for_bit(case, rng):
+    """ROIs cropped from the (C, T, H, W, 3) batch by the survivors'
+    index, and the scores on a ``FrameRows``, are bit for bit those on
+    the gathered (B, H, W, 3) frames; the scorer gathers nothing."""
+    batch, cams, ts, bb = _rows_case(case, rng)
+    whole = batch[cams, ts]
+    for size in (4, 16):
+        got = tsc.extract_rois(batch, bb, size, rows=(cams, ts))
+        assert got.dtype == torch.float32
+        assert torch.equal(got, tsc.extract_rois(whole, bb, size))
+    scorer = tsc.MLPScorer.init(6, roi_size=16, hidden=32, device="cpu")
+    rows = tsc.FrameRows(batch, cams, ts)
+    assert torch.equal(scorer.score(rows, bb), scorer.score(whole, bb))
+    assert not rows.gathered
+    assert torch.equal(rows.gather(), whole) and rows.gathered
+
+
+def test_cascade_session_crops_in_place_like_a_gathering_scorer():
+    """A cascade session on ``MLPScorer`` (crops from the step's batch)
+    and one on the same scorer behind ``CallableScorer`` (the survivors'
+    whole frames gathered) give bit-identical stage-2 scores, decisions
+    and queue seqs; ``cascade.frames_gathered`` reads 0 on the first and
+    the survivor count on the second."""
+    from repro_torch.core.utility import train_utility_model
+    C, T, H, W = 3, 6, 24, 32
+    frames = np.stack([generate_scenario(s, num_frames=4 * T, height=H,
+                                         width=W, vehicle_rate=0.3)
+                       .frames_rgb() for s in range(C)]).astype(np.float32)
+    rng = np.random.default_rng(5)
+    pfs = rng.dirichlet(np.ones(64), (40, 2)).reshape(40, 2, 8, 8)
+    model = train_utility_model(pfs.astype(np.float32), rng.random(40) < 0.5,
+                                [tcore.RED, tcore.YELLOW], op="or")
+    scorer = tsc.MLPScorer.init(2, roi_size=8, hidden=8, device="cpu")
+    seen = []
+
+    def whole(f, b):
+        seen.append(tuple(f.shape))
+        return scorer.score(f, b)
+
+    q = tcore.Query.any_of("red", "yellow", latency_bound=1.0, fps=10.0)
+    a, b = (tcore.ShedSession(q, C, device="cpu", model=model,
+                              frame_shape=(H, W),
+                              cascade=tsc.Cascade(s, window=64))
+            for s in (scorer, tsc.CallableScorer(whole)))
+    for s in (a, b):
+        s.report_backend_latency(0.15)
+    survivors = 0
+    for i in range(4):
+        batch = frames[:, i * T:(i + 1) * T]
+        ra, rb = a.step(batch, tick=True), b.step(batch, tick=True)
+        np.testing.assert_array_equal(ra.s2_scores, rb.s2_scores)
+        np.testing.assert_array_equal(ra.decisions, rb.decisions)
+        np.testing.assert_array_equal(ra.pushed_seq, rb.pushed_seq)
+        n = int((rb.decisions != SHED_ADMISSION).sum())
+        assert seen[-1] == (n, H, W, 3)
+        survivors += n
+        assert a.metrics.counter("cascade.frames_gathered").value == 0
+        assert b.metrics.counter("cascade.frames_gathered").value == survivors
+    assert len(seen) == 4 and survivors > 0
+    assert b.stats.dropped_admission > 0 and b.stats.dropped_cascade > 0

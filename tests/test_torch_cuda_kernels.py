@@ -656,6 +656,47 @@ def test_cascade_step_on_card_matches_cpu_replay():
     assert shed[1] > 0 and shed[3] > 0      # both gates shed
 
 
+def test_cascade_step_crops_survivors_without_gathering_their_frames():
+    """At 720p, with a gate that lets every frame through, a cascade
+    step's memory peak exceeds a single-stage step's on the same frames
+    by less than one float32 frame: the scorer crops the survivors from
+    the step's batch, and ``cascade.frames_gathered`` reads 0."""
+    from repro_torch.cascade import Cascade, MLPScorer
+    from repro_torch.core.session import SHED_ADMISSION
+    from repro_torch.core.utility import train_utility_model
+    dev = _card()
+    C, T, H, W, up = 8, 4, 90, 160, 8
+    frames = torch.as_tensor(_traffic(C, 3 * T, H, W, seed=40),
+                             device=dev).to(torch.uint8)
+    frames = frames.repeat_interleave(up, 2).repeat_interleave(up, 3)
+    frame_bytes = H * up * W * up * 3 * 4
+    rng = np.random.default_rng(31)
+    pfs = rng.dirichlet(np.ones(64), (60, 2)).reshape(60, 2, 8, 8)
+    model = train_utility_model(pfs.astype(np.float32), rng.random(60) < 0.5,
+                                [RED, YELLOW], op="or")
+    q = Query.any_of("red", "yellow")
+    kw = dict(device=dev, model=model, frame_shape=(H * up, W * up))
+    casc = open_session(q, C, cascade=Cascade(MLPScorer.init(7, device=dev),
+                                              window=128), **kw)
+    shed = open_session(q, C, **kw)
+    peaks = {}
+    for i in range(3):
+        batch = frames[:, i * T:(i + 1) * T].contiguous()
+        for name, s in (("cascade", casc), ("shed", shed)):
+            s.report_backend_latency(0.001)
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = s.step(batch, tick=True)
+            torch.cuda.synchronize(dev)
+            peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+            if name == "cascade":
+                survivors = int((res.decisions != SHED_ADMISSION).sum())
+    assert survivors >= C * T // 2
+    assert casc.metrics.counter("cascade.frames_gathered").value == 0
+    assert peaks["cascade"] - peaks["shed"] < frame_bytes, (peaks, survivors)
+
+
 def _sharded_frames_vs_unsharded(dev, mesh):
     """Ticked ``step(frames)`` calls of a session on ``mesh`` against the
     unsharded session on ``dev`` with the same frames: decisions, every
